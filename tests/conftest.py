@@ -24,3 +24,9 @@ def lists(rng):
 def repair_result(lists):
     from repro.core.repair import repair_compress
     return repair_compress(lists)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips where "
+        "torch.cuda.is_available() is False)")
