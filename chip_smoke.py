@@ -8,25 +8,35 @@ exits non-zero:
 
 1. device  — the card's name, and its name and power limit from
    ``nvidia-smi``;
-2. build   — both CUDA kernels compiled by ``nvcc`` into ``build_torch/``
-   (one process per source, started together), with ptxas reports;
+2. build   — the three CUDA kernels compiled by ``nvcc`` into
+   ``build_torch/`` (one process per source, started together), with
+   ptxas reports;
 3. index   — a Zipf collection (``zipf_corpus``: 20,000 docs, vocabulary
    20,000, mean length 120) compressed by the host Re-Pair and served by
    ``QueryServer(engine="cuda")``: paged index, probe and page-score
-   operand packs and the block-max score directory on the card;
+   operand packs and the block-max score directory on the card.  Then the
+   codec tier is built for ``adaptive`` and for ``ef`` over the same
+   index: per-codec list counts, bits per posting, build time;
 4. kernels — one routed K1 (``list_intersect``) batch of 8,192 lanes
-   from the Zipf boolean workload's conjunctions plus edge lanes, and one
-   K2 (``page_score``) batch of real score-directory entries, each run by
-   its kernel and its plain PyTorch version on the card: outputs must be
-   exactly equal (and equal a numpy oracle); both timed with CUDA events
-   and ``torch.profiler``;
+   from the Zipf boolean workload's conjunctions plus edge lanes, one K2
+   (``page_score``) batch of real score-directory entries, and one K3
+   (``ef_next_geq``) batch of 8,192 lanes over the ``ef`` tier's store
+   (the same conjunction probes plus edge lanes: bucket boundaries, heads,
+   tails, past the tail, negative probes), each run by its kernel and its
+   plain PyTorch version on the card: outputs must be exactly equal (and
+   equal a numpy oracle); all timed with CUDA events and
+   ``torch.profiler``;
 5. serve   — 256 Zipf boolean queries at concurrency 64 (``search_many``)
    and 64 ranked top-10 queries (``search_topk_many``) through the
-   server; launch counts are zeroed just before and read just after, and
-   every answer is checked against ``naive_eval`` / ``rank_oracle``.
-   Then (5b) each kernel's largest launch of the serve phase — for K1
-   the ranked membership round, about two million lanes — is held
-   against its plain version on the same inputs and timed the same way;
+   server, once per codec: ``repair`` (K1 and K2 must launch),
+   ``adaptive`` and ``ef`` (K3 must launch).  Launch counts are zeroed
+   just before each codec's run and read just after, and every answer is
+   checked against ``naive_eval`` / ``rank_oracle``.  Then (5b) each
+   kernel's largest launch of the serve phase — for K1 and K3 the ranked
+   membership round, about two million lanes — is held against its plain
+   version on the same inputs and timed the same way, beside one PyTorch
+   ``searchsorted`` over the uncompressed postings that computes the same
+   ``next_geq`` answers (the library time of K1 and K3);
 6. profile — a second, smaller serve pass under ``torch.profiler``: the
    device's busy and idle share and where its time went.
 
@@ -54,7 +64,8 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
 BOOLEAN_QUERIES, CONCURRENCY, RANKED_QUERIES, TOPK = 256, 64, 64, 10
-K1_LANES, K2_ENTRIES = 8192, 512
+K1_LANES, K2_ENTRIES, K3_LANES = 8192, 512, 8192
+TIER_MODES = ("adaptive", "ef")
 
 
 def _nvidia_smi() -> str:
@@ -229,6 +240,127 @@ def k2_traffic(meta, tables, statics, b_pad: int) -> tuple[float, float]:
     return float(nbytes), float(ops)
 
 
+def k3_traffic(lids, xs, pack) -> tuple[float, float]:
+    """Bytes and int32 operations one K3 launch needs on these lanes,
+    replaying the kernel's loops with their early exits (int64 here: no
+    offset of this store wraps int32).  Each input is read once: the lane
+    arrays, the directory entries of the probed lists, and the union of
+    select samples, high-bits words and low-bits words the lanes' loops
+    touch; the output is written once.  Operations are counted per loop
+    trip from the kernel's source."""
+    import torch
+    from repro_torch.core.ef import popc
+    tab = {k: v.long() for k, v in pack.items() if k != "hi_words"}
+    hi_words = pack["hi_words"]
+    li, x = lids.long(), xs.long()
+    act = (tab["n"][li] > 0) & (x <= tab["lasts"][li]) \
+        & (x > tab["firsts"][li])
+    q, ops = lids.numel(), 6 * lids.numel()
+    dir_bytes = 12 * int(torch.unique(li).numel()) \
+        + 16 * int(torch.unique(li[act]).numel())
+    li, x = li[act], x[act]
+    l = tab["lbits"][li]
+    hx, xlo = x >> l, x & ((1 << l) - 1)
+    hw0 = tab["hi_word"][li]
+    hp0, hp1 = hw0 // 8, tab["hi_word"][li + 1] // 8
+    rank, npg = tab["rank_pg"], tab["rank_pg"].numel()
+    nw = hi_words.numel()
+    touched = {"rank": [], "hi": [], "lo": []}
+
+    def select(k, ones):
+        nonlocal ops
+        r0i = hp0.clamp(max=npg - 1)
+        touched["rank"].append(r0i)
+        r0 = rank[r0i]
+        lo, hi = hp0.clone(), torch.maximum(hp1 - 1, hp0)
+        live = lo != hi
+        for _ in range(32):
+            if not bool(live.any()):
+                break
+            ops += 9 * int(live.sum())
+            mid = (lo + hi + 1) >> 1
+            mi = mid.clamp(max=npg - 1)
+            touched["rank"].append(mi[live])
+            rm = rank[mi]
+            cnt = (rm - r0) if ones else (mid - hp0) * 256 - (rm - r0)
+            go = cnt <= k
+            lo = torch.where(live & go, mid, lo)
+            hi = torch.where(live, torch.maximum(torch.where(go, hi, mid - 1),
+                                                 lo), hi)
+            live = lo != hi
+        rpi = lo.clamp(max=npg - 1)
+        touched["rank"].append(rpi)
+        rp = rank[rpi]
+        k_rel = k - ((rp - r0) if ones else (lo - hp0) * 256 - (rp - r0))
+        w0 = lo * 8
+        cum = torch.zeros_like(k_rel)
+        word_sel, k_in = w0.clone(), k_rel.clone()
+        found = torch.zeros_like(live)
+        for j in range(8):
+            scan = ~found
+            if not bool(scan.any()):
+                break
+            ops += 6 * int(scan.sum())
+            wi = (w0 + j).clamp(max=nw - 1)
+            touched["hi"].append(wi[scan])
+            c = popc(hi_words[wi]).long()
+            c = c if ones else 32 - c
+            take = scan & (cum + c > k_rel)
+            word_sel = torch.where(take, w0 + j, word_sel)
+            k_in = torch.where(take, k_rel - cum, k_in)
+            found |= take
+            cum = cum + c
+        w = hi_words[word_sel.clamp(max=nw - 1)].long() & 0xFFFFFFFF
+        cnt = torch.zeros_like(k_in)
+        bit = torch.zeros_like(k_in)
+        found = torch.zeros_like(live)
+        for b in range(32):
+            scan = ~found
+            ops += 5 * int(scan.sum())
+            isb = ((w >> b) & 1) == int(ones)
+            hit = scan & isb & (cnt == k_in)
+            bit = torch.where(hit, b, bit)
+            found |= hit
+            cnt = cnt + isb.long()
+        ops += 4 * k.numel()
+        return (word_sel - hw0) * 32 + bit
+
+    nlw = pack["lo_words"].numel()
+    lw = pack["lo_words"].long() & 0xFFFFFFFF
+
+    def low(gbit):
+        w = (gbit >> 5).clamp(max=nlw - 2)
+        touched["lo"].extend([w, (w + 1)[(gbit & 31) != 0]])
+
+    i1 = select(hx, False) - hx
+    i0 = torch.where(hx == 0, 0, select((hx - 1).clamp(min=0), False)
+                     - (hx - 1))
+    i1m = torch.minimum(i1.clamp(min=0), (tab["n"][li] - 1).clamp(min=0))
+    select(i1m, True)
+    gb0 = tab["lo_word"][li] * 32
+    lo_b, hi_b = i0.clone(), i1.clone()
+    for _ in range(32):
+        live = lo_b < hi_b
+        if not bool(live.any()):
+            break
+        ops += 12 * int(live.sum())
+        mid = (lo_b + hi_b) >> 1
+        gbit = gb0 + mid * l
+        low(gbit[live])
+        off = gbit & 31
+        w = (gbit >> 5).clamp(max=nlw - 2)
+        hip = torch.where(off == 0, 0, (lw[w + 1] << (32 - off)) & 0xFFFFFFFF)
+        ge = ((lw[w] >> off) | hip) & ((1 << l) - 1) >= xlo
+        hi_b = torch.where(live & ge, mid, hi_b)
+        lo_b = torch.where(live & ~ge, mid + 1, lo_b)
+    found = lo_b < i1
+    low(gb0 + torch.where(found, lo_b, i1m) * l)
+    ops += 10 * int(li.numel())
+    uniq = sum(int(torch.unique(torch.cat(v)).numel()) if v else 0
+               for v in touched.values())
+    return float(12 * q + dir_bytes + 4 * uniq), float(ops)
+
+
 def _k1_lanes(lists, universe, lengths, seed: int):
     """(list, x) probe lanes of the Zipf boolean workload's conjunctions —
     the shortest term's documents probed into every other term, as an svs
@@ -274,9 +406,134 @@ def _oracle_next_geq(lists, lids, xs):
     keys = np.repeat(np.arange(len(lists), dtype=np.int64), lens) * base \
         + flat
     lid = np.asarray(lids, np.int64)
-    p = np.searchsorted(keys, lid * base + np.asarray(xs, np.int64))
+    p = np.searchsorted(keys, lid * base + np.maximum(np.asarray(xs, np.int64),
+                                                      0))
     return np.where(p < ends[lid], flat[np.minimum(p, flat.size - 1)],
                     2**31 - 1)
+
+
+def _k3_lanes(lids, xs, lists, universe, lengths):
+    """K3's batch over the ``ef`` tier, where every list is an EF list:
+    K1's conjunction probes, with edge lanes for EF — on the longest lists
+    (``l`` = 0 or 1) and on singletons (the widest ``l``): the head and one
+    past it, the middle, the tail and one past it, the first and last value
+    of the middle element's bucket, 0, -1, INT_MIN, beyond the universe and
+    INT_MAX."""
+    import numpy as np
+    from repro_torch.core.ef import _list_lbits
+    edge_l, edge_x = [], []
+    for t in [int(i) for i in np.argsort(lengths)[::-1][:16]] + [
+            i for i in range(len(lists)) if lengths[i] == 1][:16]:
+        arr = np.asarray(lists[t], np.int64)
+        l = _list_lbits(arr.size, int(arr[-1]))
+        h = int(arr[arr.size // 2]) >> l
+        for x in (arr[0], arr[0] + 1, arr[arr.size // 2], arr[-1],
+                  arr[-1] + 1, h << l, ((h + 1) << l) - 1, 0, -1, -2**31,
+                  universe + 5, 2**31 - 1):
+            edge_l.append(t)
+            edge_x.append(int(x))
+    keep = K3_LANES - len(edge_l)
+    return (np.concatenate([lids[:keep], edge_l]).astype(np.int32),
+            np.concatenate([xs[:keep], edge_x]).astype(np.int32))
+
+
+class _SortedPostings:
+    """The library yardstick of K1 and K3: the uncompressed postings on the
+    card as one sorted int64 key array ``list_id * base + doc``, so one
+    ``torch.searchsorted`` (plus a gather and a select) answers ``next_geq``
+    for any (list, x) lanes.  Timed beside the kernels, used nowhere in the
+    port."""
+
+    def __init__(self, lists, universe):
+        import numpy as np
+        import torch
+        lens = np.fromiter((len(a) for a in lists), np.int64, len(lists))
+        flat = np.concatenate(lists).astype(np.int64)
+        self.base = int(universe) + 2
+        keys = np.repeat(np.arange(len(lists), dtype=np.int64), lens) \
+            * self.base + flat
+        self.keys = torch.from_numpy(keys).cuda()
+        self.vals = torch.from_numpy(flat.astype(np.int32)).cuda()
+        self.ends = torch.from_numpy(np.cumsum(lens)).cuda()
+
+    def query(self, lids, xs):
+        """Search keys of the lanes: ``x`` clipped to ``[0, base - 1]``
+        keeps every key inside its own list's range."""
+        return lids.long() * self.base + xs.long().clamp(0, self.base - 1)
+
+    def __call__(self, qkeys, lids):
+        import torch
+        p = torch.searchsorted(self.keys, qkeys)
+        hit = p < self.ends[lids.long()]
+        return torch.where(hit, self.vals[p.clamp(max=self.vals.numel() - 1)],
+                           2**31 - 1)
+
+
+def _library(lib, lids, xs, want) -> float:
+    """Device ms of the library yardstick on these lanes (100 calls),
+    after checking that it returns ``want``."""
+    import torch
+    qkeys = lib.query(lids, xs)
+    if not torch.equal(lib(qkeys, lids), want):
+        raise SystemExit("[kernels] the searchsorted yardstick disagrees "
+                         "with the kernel")
+    return _device_ms(lambda: lib(qkeys, lids), 100)[0]
+
+
+def _serve(srv, queries, bags, lists, universe, wrappers):
+    """Serve the boolean and then the ranked workload once through ``srv``
+    with every launch count zeroed just before and read just after, and
+    check every answer against ``naive_eval`` / ``rank_oracle``.  Records
+    each kernel launch's batch size (lanes / entries) on the way in and
+    keeps the inputs of each kernel's largest launch.  Returns the
+    launches, shapes, largest launches, times, latencies and stats."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as KR
+    from repro_torch.query import naive_eval, rank_oracle
+    shapes = {name: [] for _, name in wrappers}
+    largest: dict[str, tuple] = {}
+    phase = ["boolean"]
+
+    def recording(name, fn):
+        def call(*a, **kw):
+            n = int(a[0].shape[0])
+            shapes[name].append(n)
+            if n > largest.get(name, (0,))[0]:
+                largest[name] = (n, phase[0], a, kw)
+            return fn(*a, **kw)
+        return call
+
+    for (mod, name), fn in wrappers.items():
+        setattr(mod, name, recording(name, fn))
+    n0 = len(srv.scheduler.latencies)
+    try:
+        KR.reset_launches()
+        t0 = time.perf_counter()
+        outs = srv.search_many(queries)
+        t_bool = time.perf_counter() - t0
+        n_lat = len(srv.scheduler.latencies)
+        phase[0] = "ranked"
+        t0 = time.perf_counter()
+        ranked = srv.search_topk_many(bags, TOPK)
+        t_rank = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(KR.LAUNCHES)
+    finally:
+        for (mod, name), fn in wrappers.items():
+            setattr(mod, name, fn)
+    lat = np.asarray(srv.scheduler.latencies, np.float64) * 1e3
+    for q, got in zip(queries, outs):
+        if not np.array_equal(got, naive_eval(q, lists, universe)):
+            raise SystemExit(f"[serve] boolean answer differs: {q}")
+    for bag, got in zip(bags, ranked):
+        docs, scores = rank_oracle(lists, universe, bag, TOPK)
+        if not (np.array_equal(got.docs, docs)
+                and np.array_equal(got.scores, scores)):
+            raise SystemExit(f"[serve] ranked answer differs: {bag}")
+    return dict(launches=launches, shapes=shapes, largest=largest,
+                t_bool=t_bool, t_rank=t_rank, lat_bool=lat[n0:n_lat],
+                lat_rank=lat[n_lat:], stats=srv.serve_stats())
 
 
 def _hold(name, kernel, plain, args, kw, traffic) -> tuple:
@@ -312,15 +569,16 @@ def _print_hold(name: str, row: dict, unit: str, against: str) -> None:
 
 def _kernel_row(name, source, replaces, launches, serve, other) -> dict:
     """One entry of the ``kernels`` line: the top-level numbers are those
-    of the kernel's largest serve launch, where its time counts; every
-    batch it was held on is under ``shapes``."""
+    of the kernel's largest serve launch, where its time counts (with its
+    library yardstick's time there, if it has one); every batch it was
+    held on is under ``shapes``."""
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches[name],
         max_abs_err=max(serve["max_abs_err"], other["max_abs_err"]),
         ms=serve["ms"], plain_ms=serve["plain_ms"],
         bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
-        library_ms=None, shapes=[serve, other])
+        library_ms=serve.get("library_ms"), shapes=[serve, other])
 
 
 def main() -> int:
@@ -337,11 +595,13 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 2
     from repro_torch import kernels as KR
+    from repro_torch.core.ef import ef_next_geq_np
+    from repro_torch.index.codec_tier import build_codec_tier
+    from repro_torch.kernels.ef_next_geq import ops as K3
     from repro_torch.kernels.list_intersect import ops as K1
     from repro_torch.kernels.page_score import ops as K2
     from repro_torch.launch.serve import (boolean_workload, build_corpus,
                                           ranked_workload)
-    from repro_torch.query import naive_eval, rank_oracle
     from repro_torch.serve import QueryServer
 
     # 1. device
@@ -366,7 +626,7 @@ def main() -> int:
     t_build = time.perf_counter() - t0
     lengths = [len(l) for l in lists]
     srv = QueryServer(res, engine="cuda", device="cuda",
-                      batch_window=CONCURRENCY)
+                      batch_window=CONCURRENCY, codec="repair")
     eng = srv.engine
     si = eng.score_index
     tables1, statics1, host1 = K1.pad_paged_operands(eng.pi)
@@ -381,6 +641,18 @@ def main() -> int:
           f"Re-Pair {t_build:.1f} s; {dev_bytes / 2**20:.1f} MiB on the "
           f"device; max_scan {statics1['max_scan']}, max_depth "
           f"{statics1['max_depth']}")
+    tiers = {}
+    for mode in TIER_MODES:
+        t0 = time.perf_counter()
+        tiers[mode] = tier = build_codec_tier(res, mode)
+        t_tier = time.perf_counter() - t0
+        rep = tier.space_report(res)
+        ef = tier.ef
+        print(f"[tier] {mode}: lists {rep['counts']}, "
+              f"{rep['bits_per_posting']:.2f} bits/posting "
+              f"({rep['total_bits'] / 8 / 2**20:.2f} MiB); EF store "
+              f"{ef.lo_words.size} low + {ef.hi_words.size} high words, max "
+              f"bucket {ef.max_bucket}; tier built in {t_tier:.2f} s")
 
     # 4. kernels against their plain versions, on the card
     lids, xs = _k1_lanes(lists, res.universe, lengths, args.seed)
@@ -428,73 +700,83 @@ def main() -> int:
                   f"{kw2['b_pad']} slots", size=int(ent.size), **k2_dir)
     _print_hold("page_score", k2_dir, "entries", "plain and lists")
 
-    # 5. serve
+    ef_store = tiers["ef"].ef
+    rank = ef_store.select_samples()
+    pack3 = K3.pad_ef_operands(ef_store, rank, "cuda")
+    lids3, xs3 = _k3_lanes(lids, xs, lists, res.universe, lengths)
+    lanes3 = tuple(torch.from_numpy(a).cuda() for a in (lids3, xs3))
+    out, k3_bool = _hold("ef_next_geq", K3.ef_next_geq, K3.ef_next_geq_plain,
+                         (*lanes3, pack3), {},
+                         lambda: k3_traffic(*lanes3, pack3))
+    got = out.cpu().numpy()
+    for what, want in (("numpy reference",
+                        ef_next_geq_np(ef_store, rank, lids3, xs3)),
+                       ("oracle", _oracle_next_geq(lists, lids3, xs3))):
+        if not np.array_equal(got, want):
+            raise SystemExit(f"[kernels] ef_next_geq disagrees with the "
+                             f"{what} in {int((got != want).sum())} lanes")
+    k3_bool = dict(batch="boolean conjunction probes and EF edge lanes, "
+                   "'ef' tier", size=int(lids3.size), **k3_bool)
+    _print_hold("ef_next_geq", k3_bool, "lanes",
+                "plain, numpy reference and oracle")
+
+    # 5. serve, once per codec; launch counts zeroed just before each run
     queries = boolean_workload(len(lists), lengths,
                                n_queries=BOOLEAN_QUERIES, seed=args.seed)
-    # record each launch's batch size (lanes / entries) on the way in, and
-    # keep the inputs of each kernel's largest launch for step 5b
     wrappers = {(K1, "list_intersect"): K1.list_intersect,
-                (K2, "page_score"): K2.page_score}
-    shapes = {name: [] for _, name in wrappers}
-    largest: dict[str, tuple] = {}
-    phase = ["boolean"]
-
-    def recording(name, fn):
-        def call(*a, **kw):
-            n = int(a[0].shape[0])
-            shapes[name].append(n)
-            if n > largest.get(name, (0,))[0]:
-                largest[name] = (n, phase[0], a, kw)
-            return fn(*a, **kw)
-        return call
-
-    for (mod, name), fn in wrappers.items():
-        setattr(mod, name, recording(name, fn))
-    KR.reset_launches()
-    t0 = time.perf_counter()
-    outs = srv.search_many(queries)
-    t_bool = time.perf_counter() - t0
-    n_lat = len(srv.scheduler.latencies)
-    phase[0] = "ranked"
-    t0 = time.perf_counter()
-    ranked = srv.search_topk_many(bags, TOPK)
-    t_rank = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    launches = dict(KR.LAUNCHES)
-    for (mod, name), fn in wrappers.items():
-        setattr(mod, name, fn)
-    lat = np.asarray(srv.scheduler.latencies, np.float64) * 1e3
-    for q, got in zip(queries, outs):
-        want = naive_eval(q, lists, res.universe)
-        if not np.array_equal(got, want):
-            raise SystemExit(f"[serve] boolean answer differs: {q}")
-    for bag, got in zip(bags, ranked):
-        docs, scores = rank_oracle(lists, res.universe, bag, TOPK)
-        if not (np.array_equal(got.docs, docs)
-                and np.array_equal(got.scores, scores)):
-            raise SystemExit(f"[serve] ranked answer differs: {bag}")
-    st = srv.serve_stats()
+                (K2, "page_score"): K2.page_score,
+                (K3, "ef_next_geq"): K3.ef_next_geq}
+    runs = {"repair": (srv, _serve(srv, queries, bags, lists, res.universe,
+                                   wrappers))}
+    run = runs["repair"][1]
+    launches, st = run["launches"], run["stats"]
+    lat_b, lat_r = run["lat_bool"], run["lat_rank"]
     print(f"[serve] boolean: {len(queries)} queries at concurrency "
-          f"{CONCURRENCY} in {t_bool:.3f} s ({len(queries) / t_bool:.1f} "
-          f"q/s), p50 {np.percentile(lat[:n_lat], 50):.2f} ms, p95 "
-          f"{np.percentile(lat[:n_lat], 95):.2f} ms; all answers equal "
+          f"{CONCURRENCY} in {run['t_bool']:.3f} s "
+          f"({len(queries) / run['t_bool']:.1f} q/s), p50 "
+          f"{np.percentile(lat_b, 50):.2f} ms, p95 "
+          f"{np.percentile(lat_b, 95):.2f} ms; all answers equal "
           f"naive_eval")
     print(f"[serve] ranked top-{TOPK}: {len(bags)} queries in "
-          f"{t_rank:.3f} s ({len(bags) / t_rank:.1f} q/s), p50 "
-          f"{np.percentile(lat[n_lat:], 50):.2f} ms, p95 "
-          f"{np.percentile(lat[n_lat:], 95):.2f} ms, pages scored "
+          f"{run['t_rank']:.3f} s ({len(bags) / run['t_rank']:.1f} q/s), p50 "
+          f"{np.percentile(lat_r, 50):.2f} ms, p95 "
+          f"{np.percentile(lat_r, 95):.2f} ms, pages scored "
           f"{st['pages_scored']} / skipped {st['pages_skipped']}; all "
           f"answers equal rank_oracle (exact scores and order)")
     print(f"[serve] launches {launches}, dispatches {st['dispatches']}, "
           f"lanes {st['real_lanes']} real / {st['unique_lanes']} unique / "
           f"{st['pad_lanes']} pad; launch shapes (lanes / entries) "
-          f"{shapes}")
-    if min(launches.values()) == 0:
+          f"{run['shapes']}")
+    if launches["list_intersect"] == 0 or launches["page_score"] == 0:
         raise SystemExit(f"[serve] a kernel never launched: {launches}")
+    for mode in TIER_MODES:
+        tsrv = QueryServer(res, engine="cuda", device="cuda",
+                           batch_window=CONCURRENCY, codec=tiers[mode])
+        runs[mode] = (tsrv, _serve(tsrv, queries, bags, lists,
+                                   res.universe, wrappers))
+    print("[serve] per codec (same 256 boolean + 64 ranked queries, every "
+          "answer equal naive_eval / rank_oracle):")
+    for mode, (_, run) in runs.items():
+        st = run["stats"]
+        print(f"[serve]   {mode}: boolean "
+              f"{len(queries) / run['t_bool']:.1f} q/s, p50 "
+              f"{np.percentile(run['lat_bool'], 50):.2f} / p95 "
+              f"{np.percentile(run['lat_bool'], 95):.2f} ms; ranked "
+              f"{len(bags) / run['t_rank']:.1f} q/s, p50 "
+              f"{np.percentile(run['lat_rank'], 50):.2f} / p95 "
+              f"{np.percentile(run['lat_rank'], 95):.2f} ms; codec "
+              f"dispatches {st['codec_dispatches']}; launches "
+              f"{run['launches']}; K3 launch shapes "
+              f"{run['shapes']['ef_next_geq']}")
+    if runs["ef"][1]["launches"]["ef_next_geq"] == 0:
+        raise SystemExit("[serve] ef_next_geq never launched while serving "
+                         "under codec 'ef'")
 
     # 5b. each kernel's largest serve launch, held against its plain
-    # version on the same inputs and timed (after the counts were read)
-    n, ph, a, kw = largest["list_intersect"]
+    # version on the same inputs and timed (after the counts were read),
+    # beside the searchsorted yardstick for K1 and K3
+    lib = _SortedPostings(lists, res.universe)
+    n, ph, a, kw = runs["repair"][1]["largest"]["list_intersect"]
     out, k1_srv = _hold("list_intersect", K1.list_intersect,
                         K1.list_intersect_plain, a, kw,
                         lambda: k1_traffic(a[:4], a[4], kw))
@@ -503,25 +785,53 @@ def main() -> int:
         raise SystemExit("[kernels] list_intersect disagrees with the "
                          "oracle on the largest serve launch")
     k1_srv = dict(batch=f"largest serve launch ({ph} queries)", size=n,
-                  **k1_srv)
+                  library_ms=_library(lib, a[0], a[1], out), **k1_srv)
     _print_hold("list_intersect", k1_srv, "lanes", "plain and oracle")
-    n, ph, a, kw = largest["page_score"]
+    n, ph, a, kw = runs["repair"][1]["largest"]["page_score"]
     _, k2_srv = _hold("page_score", K2.page_score, K2.page_score_plain, a,
                       kw, lambda: k2_traffic(a[:6], a[6], kw, kw["b_pad"]))
     k2_srv = dict(batch=f"largest serve launch ({ph} queries), "
                   f"{kw['b_pad']} slots", size=n, **k2_srv)
     _print_hold("page_score", k2_srv, "entries", "plain")
+    mode, (n, ph, a, kw) = max(
+        ((m, runs[m][1]["largest"]["ef_next_geq"]) for m in TIER_MODES
+         if "ef_next_geq" in runs[m][1]["largest"]), key=lambda r: r[1][0])
+    out, k3_srv = _hold("ef_next_geq", K3.ef_next_geq, K3.ef_next_geq_plain,
+                        a, kw, lambda: k3_traffic(*a))
+    got = out.cpu().numpy()
+    lid_np, x_np = a[0].cpu().numpy(), a[1].cpu().numpy()
+    store = tiers[mode].ef
+    for what, want in (("numpy reference", ef_next_geq_np(
+            store, store.select_samples(), lid_np, x_np)),
+            ("oracle", _oracle_next_geq(lists, lid_np, x_np))):
+        if not np.array_equal(got, want):
+            raise SystemExit(f"[kernels] ef_next_geq disagrees with the "
+                             f"{what} on the largest serve launch")
+    k3_srv = dict(batch=f"largest serve launch ({ph} queries, codec "
+                  f"{mode!r})", size=n,
+                  library_ms=_library(lib, a[0], a[1], out), **k3_srv)
+    _print_hold("ef_next_geq", k3_srv, "lanes",
+                "plain, numpy reference and oracle")
+    print(f"[kernels] searchsorted yardstick over the uncompressed postings: "
+          f"list_intersect's launch {k1_srv['library_ms']:.5f} ms, "
+          f"ef_next_geq's launch {k3_srv['library_ms']:.5f} ms")
 
+    k3_launches = {"ef_next_geq": runs["ef"][1]["launches"]["ef_next_geq"]}
     report = [
         _kernel_row("list_intersect", "src/repro_torch/csrc/list_intersect.cu",
                     "src/repro/kernels/list_intersect/list_intersect.py:158",
                     launches, k1_srv, k1_bool),
         _kernel_row("page_score", "src/repro_torch/csrc/page_score.cu",
                     "src/repro/kernels/page_score/page_score.py:122",
-                    launches, k2_srv, k2_dir)]
+                    launches, k2_srv, k2_dir),
+        _kernel_row("ef_next_geq", "src/repro_torch/csrc/ef_next_geq.cu",
+                    "src/repro/kernels/ef_next_geq/ef_next_geq.py:131",
+                    k3_launches, k3_srv, k3_bool)]
     print("[kernels] " + "; ".join(
         f"{r['name']}: {r['launches']} launches while serving, 0 mismatches, "
-        f"{r['ms']:.5f} ms at the largest serve launch" for r in report))
+        f"{r['ms']:.5f} ms at the largest serve launch" for r in report)
+        + f" (ef_next_geq launches counted under codec 'ef'; under "
+        f"'adaptive' {runs['adaptive'][1]['launches']['ef_next_geq']})")
 
     prof = _serve_profile(
         srv, boolean_workload(len(lists), lengths, n_queries=BOOLEAN_QUERIES

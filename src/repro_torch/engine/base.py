@@ -8,8 +8,9 @@ One interface, three interchangeable backends:
 * :class:`~repro_torch.engine.TorchEngine`       — plain PyTorch
   fixed-trip-count programs on a device (the reference for the kernels);
 * :class:`~repro_torch.engine.CudaEngine`        — the hand-written CUDA
-  kernels ``list_intersect`` (every probe) and ``page_score`` (every
-  ranked page decode).
+  kernels ``list_intersect`` (every Re-Pair probe), ``ef_next_geq``
+  (every Elias-Fano probe) and ``page_score`` (every ranked page
+  decode).
 
 Every operation takes/returns **numpy** at the boundary so callers
 (server, launcher, smoke run) are backend-agnostic; sentinel for "no
@@ -27,13 +28,20 @@ The four operations:
 ``dispatch_round(list_ids, xs, algo)`` is the serving runtime's entry
 point: one merged probe round — the concatenated ProbeRound workloads of
 every in-flight query — deduplicated, memoized, and routed to
-``next_geq_batch``/``next_geq_bys_batch``; the device engines pad it to a
-power-of-two bucket.
+``next_geq_batch``/``next_geq_bys_batch``; the device engines pad each
+sub-round to a power-of-two bucket.
 
-The JAX package's per-list codec tier and out-of-core page store are not
-part of this package yet: an engine accepts only ``codec`` None/"repair"
-and ``store`` None (and the matching environment defaults) and raises
-``NotImplementedError`` on anything else.
+**Codec tier**: constructed with ``codec`` (or under ``REPRO_CODEC``),
+the engine carries a per-list codec assignment (Re-Pair / Elias-Fano /
+bitmap, ``index/codec_tier.py``).  The probe entry points split each
+round's lanes by codec and dispatch every sub-round through that codec's
+``next_geq`` path; with no tier (the default) the Re-Pair path runs
+alone.  The Re-Pair structures remain the decode ground truth in every
+mode, so results are identical across assignments.
+
+The JAX package's out-of-core page store is not part of this package
+yet: an engine accepts only ``store`` None (and no ``REPRO_STORE``) and
+raises ``NotImplementedError`` on anything else.
 """
 
 from __future__ import annotations
@@ -45,9 +53,12 @@ from typing import Sequence
 import numpy as np
 
 from ..core.cache import LRUCache
+from ..core.ef import ef_next_geq_np
 from ..core.index import (DEFAULT_PAGE, INT_INF, ScoreIndex,
                           accumulate_scores, build_score_index)
 from ..core.repair import RePairResult
+from ..index.codec_tier import (CODEC_BITMAP, CODEC_NAMES, bitmap_member_np,
+                                bitmap_next_geq_np, build_codec_tier)
 
 #: entry bound of the per-engine decoded-list LRU (env override
 #: ``REPRO_DECODE_CACHE``; 0 disables caching)
@@ -71,15 +82,10 @@ def _env_flag(name: str, default: bool = True) -> bool:
 DEDUP_ENABLED = _env_flag("REPRO_DEDUP", True)
 
 
-def _require_repair_only(codec, store) -> None:
-    """Refuse the codec tier and the page store (and their environment
-    defaults ``REPRO_CODEC`` / ``REPRO_STORE``), which this package does
-    not implement yet — never ignore them silently."""
-    mode = codec if codec is not None else \
-        os.environ.get("REPRO_CODEC", "repair")
-    if mode not in (None, "", "repair"):
-        raise NotImplementedError(
-            f"codec {mode!r}: only the Re-Pair codec is ported")
+def _refuse_store(store) -> None:
+    """Refuse the page store (and its environment default
+    ``REPRO_STORE``), which this package does not implement yet — never
+    ignore it silently."""
     kind = store if store is not None else os.environ.get("REPRO_STORE", "")
     if str(kind).strip().lower() not in ("", "none", "off", "0"):
         raise NotImplementedError(
@@ -97,27 +103,37 @@ class Engine(abc.ABC):
     #: them as new decodes land.
     index_version: int = 0
 
-    #: the codec tier and the page store are not ported: always None (the
-    #: planner and the scheduler read these attributes)
-    tier = None
+    #: the page store is not ported: always None (the scheduler reads
+    #: these attributes)
     resident = None
     store = None
 
-    def __init__(self, res: RePairResult, codec: str | None = None,
+    def __init__(self, res: RePairResult,
+                 codec: "str | object | None" = None,
                  store: str | None = None):
-        _require_repair_only(codec, store)
+        _refuse_store(store)
         self.res = res
         self.lengths = np.asarray(res.orig_lengths, dtype=np.int64)
         self._decoded = LRUCache(DECODE_CACHE_SIZE)
         self._score_index: ScoreIndex | None = None
-        #: probe dispatch telemetry, surfaced by the scheduler
-        self.codec_dispatches = {"repair": 0}
+        # per-list codec tier: None in pure-repair mode; a prebuilt
+        # CodecTier passes through so servers can share one tier
+        self.tier = build_codec_tier(res, codec)
+        #: bounded, version-keyed LRU for the EF select samples and the
+        #: derived device packs — the same ``REPRO_DECODE_CACHE`` bound
+        #: and ``index_version`` keying as the decode LRU, so a hot swap
+        #: orphans stale packs and the LRU evicts them
+        self._ef_sel = LRUCache(DECODE_CACHE_SIZE)
+        #: per-codec sub-dispatch telemetry, surfaced by the scheduler
+        self.codec_dispatches = {"repair": 0, "ef": 0, "bitmap": 0}
         #: cross-query lane dedup toggle — resolved from ``REPRO_DEDUP``
         #: at construction; tests flip it per engine
         self.dedup = DEDUP_ENABLED
         #: bounded probe memo keyed ``(index_version, memo_epoch, algo,
-        #: list_id, x)``.  ``swap_index`` builds a FRESH engine per swap,
-        #: so the memo is flushed on every hot swap.
+        #: list_id, x)``.  The codec is implied by ``list_id`` — one tier
+        #: per engine, assignment fixed at build.  ``swap_index`` builds a
+        #: FRESH engine per swap, so the memo is flushed on every hot
+        #: swap.
         self._probe_memo = LRUCache(PROBE_MEMO_SIZE)
         self.memo_epoch = 0
         #: cumulative merged-round lane accounting; the scheduler
@@ -140,27 +156,50 @@ class Engine(abc.ABC):
 
     def next_geq_batch(self, list_ids: np.ndarray,
                        xs: np.ndarray) -> np.ndarray:
-        """(Q,) int32 values; INT_INF where no element >= x exists."""
-        return np.asarray(self._next_geq_repair(list_ids, xs))
+        """(Q,) int32 values; INT_INF where no element >= x exists.  With
+        a codec tier, lanes split by their list's codec and each
+        sub-batch runs that codec's probe path."""
+        if self.tier is None:
+            return np.asarray(self._next_geq_repair(list_ids, xs))
+        return self._route_codecs(list_ids, xs, "svs")
 
     def member_batch(self, list_ids: np.ndarray, xs: np.ndarray) -> np.ndarray:
-        """Boolean membership per lane: ``next_geq == x``."""
+        """Boolean membership per lane.  Bitmap-coded lists answer with a
+        single word test — no probe, no decode; all other lanes reduce to
+        ``next_geq == x``."""
         lids = np.asarray(list_ids).ravel()
         xq = np.asarray(xs).ravel()
-        return np.asarray(self.next_geq_batch(lids, xq)) == xq
+        if self.tier is None or self.tier.bm is None:
+            return np.asarray(self.next_geq_batch(lids, xq)) == xq
+        codes = self.tier.codec[lids.astype(np.int64)]
+        out = np.zeros(lids.size, dtype=bool)
+        bm = np.flatnonzero(codes == CODEC_BITMAP)
+        rest = np.flatnonzero(codes != CODEC_BITMAP)
+        if rest.size:
+            out[rest] = (np.asarray(self.next_geq_batch(lids[rest],
+                                                        xq[rest]))
+                         == xq[rest])
+        if bm.size:
+            out[bm] = bitmap_member_np(self.tier.bm, lids[bm], xq[bm])
+        return out
 
     def next_geq_bys_batch(self, list_ids: np.ndarray,
                            xs: np.ndarray) -> np.ndarray:
         """Batched Baeza-Yates-style binary-search next_geq [BY04]; same
-        contract as ``next_geq_batch``."""
-        return np.asarray(self._next_geq_repair_bys(list_ids, xs))
+        contract as ``next_geq_batch``.  Non-repair lanes route to their
+        codec path — EF and bitmap probes ARE position searches already,
+        so "bys" only differentiates the repair lanes."""
+        if self.tier is None:
+            return np.asarray(self._next_geq_repair_bys(list_ids, xs))
+        return self._route_codecs(list_ids, xs, "bys")
 
     def _next_geq_repair_bys(self, list_ids: np.ndarray,
                              xs: np.ndarray) -> np.ndarray:
-        """[BY04] probe: the base implementation bisects the DECODED list
-        (the classic uncompressed baseline); device engines override it
-        with a positional bisection of the compressed stream's phrase-sum
-        prefix table (``torch_backend.next_geq_bys_batch``)."""
+        """Repair-lane [BY04] probe: the base implementation bisects the
+        DECODED list (the classic uncompressed baseline); device engines
+        override it with a positional bisection of the compressed
+        stream's phrase-sum prefix table
+        (``torch_backend.next_geq_bys_batch``)."""
         lids = np.asarray(list_ids)
         xq = np.asarray(xs, np.int64)
         out = np.full(lids.shape, int(INT_INF), dtype=np.int64)
@@ -238,22 +277,64 @@ class Engine(abc.ABC):
 
     def _dispatch_lanes(self, lids: np.ndarray, xq: np.ndarray,
                         algo: str) -> np.ndarray:
-        """The post-dedup/post-memo slice of a merged round."""
+        """The post-dedup/post-memo slice of a merged round: codec
+        routing + backend dispatch."""
         self.lane_stats["dispatched_lanes"] += lids.size
         self._in_round = True
         try:
-            self.codec_dispatches["repair"] += 1
-            return np.asarray(self._dispatch_algo(lids, xq, algo))
+            if self.tier is None:
+                self.codec_dispatches["repair"] += 1
+                return np.asarray(self._dispatch_codec(0, lids, xq, algo))
+            return self._route_codecs(lids, xq, algo)
         finally:
             self._in_round = False
 
-    def _dispatch_algo(self, lids: np.ndarray, xq: np.ndarray,
-                       algo: str) -> np.ndarray:
-        """One sub-round through the algorithm's primitive (host tier:
-        unpadded; the device override pads to the pow2 bucket first)."""
+    def _route_codecs(self, list_ids, xs, algo: str) -> np.ndarray:
+        """Split lanes by their list's codec; one sub-dispatch each."""
+        lids = np.asarray(list_ids, np.int32).ravel()
+        xq = np.asarray(xs, np.int32).ravel()
+        codes = self.tier.codec[lids.astype(np.int64)]
+        out = np.empty(lids.size, dtype=np.int32)
+        for c in np.unique(codes):
+            m = np.flatnonzero(codes == c)
+            out[m] = np.asarray(
+                self._dispatch_codec(int(c), lids[m], xq[m], algo))
+            self.codec_dispatches[CODEC_NAMES[int(c)]] += 1
+        return out
+
+    def _dispatch_codec(self, codec: int, lids: np.ndarray, xq: np.ndarray,
+                        algo: str) -> np.ndarray:
+        """One single-codec sub-round (host tier: unpadded; the device
+        override pads to the pow2 bucket before delegating here)."""
+        if codec == 1:                       # CODEC_EF
+            return self._ef_next_geq(lids, xq)
+        if codec == 2:                       # CODEC_BITMAP
+            return self._bitmap_next_geq(lids, xq)
         if algo == "bys":
             return np.asarray(self._next_geq_repair_bys(lids, xq))
         return np.asarray(self._next_geq_repair(lids, xq))
+
+    # -- codec-tier probe paths ----------------------------------------------
+
+    def _ef_pack(self) -> dict:
+        """Select samples (+ backend packs) for the EF store, cached in
+        the bounded version-keyed LRU (a hot swap orphans the entry)."""
+        key = (self.index_version, "ef")
+        pack = self._ef_sel.get(key)
+        if pack is None:
+            pack = self._build_ef_pack()
+            self._ef_sel.put(key, pack)
+        return pack
+
+    def _build_ef_pack(self) -> dict:
+        return {"samples": self.tier.ef.select_samples()}
+
+    def _ef_next_geq(self, lids, xq) -> np.ndarray:
+        return ef_next_geq_np(self.tier.ef, self._ef_pack()["samples"],
+                              lids, xq)
+
+    def _bitmap_next_geq(self, lids, xq) -> np.ndarray:
+        return bitmap_next_geq_np(self.tier.bm, lids, xq)
 
     # -- whole-list decode ---------------------------------------------------
 

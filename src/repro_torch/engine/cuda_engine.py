@@ -1,15 +1,18 @@
 """CudaEngine: the hand-written CUDA kernels behind the engine API.
 
-The counterpart of ``repro/engine/pallas_engine.py``.  Every probe —
-membership, pairwise and k-term AND, meld, the repair lanes of every
-merged scheduler round — runs kernel K1 (``kernels/list_intersect``)
-over the paged stream: the host router (bucket lookup, anchor-page sort)
-is numpy, the kernel does the phrase-sum skipping and grammar descent.
-Every ranked ScoreRound decodes its page entries with kernel K2
-(``kernels/page_score``).  Expansion of the short side and the [BY04]
-binary search reuse the plain PyTorch programs, as ``PallasEngine`` reuses
-jnp for them.  The paged index and both kernels' operand packs are built
-once per index and reused for every launch.
+The counterpart of ``repro/engine/pallas_engine.py``.  Every probe of a
+Re-Pair list — membership, pairwise and k-term AND, meld, the repair
+lanes of every merged scheduler round — runs kernel K1
+(``kernels/list_intersect``) over the paged stream: the host router
+(bucket lookup, anchor-page sort) is numpy, the kernel does the
+phrase-sum skipping and grammar descent.  Under a codec tier every probe
+of an Elias-Fano list runs kernel K3 (``kernels/ef_next_geq``), selects
+and low-bits search in one launch.  Every ranked ScoreRound decodes its
+page entries with kernel K2 (``kernels/page_score``).  Expansion of the
+short side, the [BY04] binary search and the bitmap probe reuse the
+plain PyTorch programs, as ``PallasEngine`` reuses jnp for them.  The
+paged index and the kernels' operand packs are built once per index and
+reused for every launch.
 
 On a CUDA device the kernels launch or raise; with ``device="cpu"`` the
 wrappers run the kernels' plain versions, which is how the CPU tests hold
@@ -23,6 +26,7 @@ import numpy as np
 from ..core.index import FlatIndex, PagedIndex, build_paged_index, \
     DEFAULT_PAGE
 from ..core.repair import RePairResult
+from ..kernels.ef_next_geq import ops as EFK
 from ..kernels.list_intersect import ops as K
 from ..kernels.page_score import ops as PS
 from .device import DeviceEngine
@@ -71,3 +75,15 @@ class CudaEngine(DeviceEngine):
         return K.next_geq_paged(self._tables, self._host,
                                 np.asarray(list_ids), np.asarray(xs),
                                 **self._statics)
+
+    # -- codec tier ---------------------------------------------------------
+
+    def _build_ef_pack(self) -> dict:
+        """K3's operand pack on this engine's device, with the select
+        samples it is built from."""
+        rank = self.tier.ef.select_samples()
+        return {"samples": rank,
+                "dev": EFK.pad_ef_operands(self.tier.ef, rank, self.device)}
+
+    def _ef_next_geq(self, lids, xq) -> np.ndarray:
+        return EFK.next_geq_ef(self._ef_pack()["dev"], lids, xq)

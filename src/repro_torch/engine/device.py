@@ -2,13 +2,15 @@
 
 ``DeviceEngine`` owns everything backend-independent — expansion of the
 short side, (short, long) normalization, candidate thinning for k-term
-queries, the power-of-two round buckets — and delegates exactly one
-primitive to the concrete backend: the batched next_geq probe.  Every
-pair, k-term query and whole-list decode runs on the engine's device,
-whatever the lists' lengths.  ``TorchEngine`` implements it with the plain
-PyTorch fixed-trip-count programs (``engine/torch_backend.py``, flat or
-paged addressing); ``CudaEngine`` with the hand-written ``list_intersect``
-kernel.  Both are interchangeable anywhere and agree bit-exactly.
+queries, the power-of-two round buckets, the codec tier's EF and bitmap
+probe programs — and delegates exactly one primitive to the concrete
+backend: the batched Re-Pair next_geq probe.  Every pair, k-term query
+and whole-list decode runs on the engine's device, whatever the lists'
+lengths.  ``TorchEngine`` implements it with the plain PyTorch
+fixed-trip-count programs (``engine/torch_backend.py``, flat or paged
+addressing); ``CudaEngine`` with the hand-written ``list_intersect``
+kernel (and its EF lanes with ``ef_next_geq``).  Both are
+interchangeable anywhere and agree bit-exactly.
 
 Every tensor lives on the engine's ``device``, which defaults to
 ``"cuda"``; ``device="cpu"`` runs the same programs on the CPU (the
@@ -25,7 +27,9 @@ import torch
 
 from ..core.index import (FlatIndex, PagedIndex, build_flat_index,
                           build_paged_index, DEFAULT_PAGE)
+from ..core import ef as EF
 from ..core.repair import RePairResult
+from ..index import codec_tier as CT
 from ..kernels import resolve_device
 from .base import Engine
 from . import torch_backend as J
@@ -42,8 +46,9 @@ class DeviceEngine(Engine):
     def __init__(self, res: RePairResult, fi: FlatIndex | None = None,
                  max_short_len: int = 256, B: int = 8, device="cuda",
                  codec=None, store=None):
+        device = resolve_device(device)   # no card: raise before any build
         super().__init__(res, codec=codec, store=store)
-        self.device = resolve_device(device)
+        self.device = device
         self.fi = fi if fi is not None else build_flat_index(
             res, B=B, device=self.device)
         if self.fi.device != self.device:
@@ -78,15 +83,17 @@ class DeviceEngine(Engine):
     #: least this many lanes
     ROUND_BUCKET_MIN = 16
 
-    def _dispatch_algo(self, lids: np.ndarray, xq: np.ndarray,
-                       algo: str) -> np.ndarray:
+    def _dispatch_codec(self, codec: int, lids: np.ndarray, xq: np.ndarray,
+                        algo: str) -> np.ndarray:
         """Merged-round padding convention for the device tier: the
         scheduler concatenates the pending rounds of every in-flight
-        query, so each round's flat size varies tick to tick.  Pad up to
-        the next power of two (min ``ROUND_BUCKET_MIN``) by repeating the
-        round's first lane — a real (list, probe) — and slice the answers
-        back, so every program sees O(log Q) distinct shapes.  The lane
-        ledger counts the pad lanes exactly as the JAX package does."""
+        query, so each (codec, algo) sub-round's flat size varies tick to
+        tick.  Pad up to the next power of two (min ``ROUND_BUCKET_MIN``)
+        by repeating the sub-round's first lane — a real (list, probe) of
+        THIS codec, so the pad lanes stay inside the codec's own tables —
+        and slice the answers back, so every program and kernel sees
+        O(log Q) distinct shapes.  The lane ledger counts the pad lanes
+        exactly as the JAX package does."""
         n = lids.size
         bucket = max(self.ROUND_BUCKET_MIN, 1 << (n - 1).bit_length())
         if bucket != n:
@@ -94,7 +101,8 @@ class DeviceEngine(Engine):
             xq = np.pad(xq, (0, bucket - n), mode="edge")
         if self._in_round:
             self.lane_stats["pad_lanes"] += bucket - n
-        return np.asarray(super()._dispatch_algo(lids, xq, algo))[:n]
+        return np.asarray(super()._dispatch_codec(codec, lids, xq,
+                                                  algo))[:n]
 
     def _next_geq_repair(self, list_ids: np.ndarray,
                          xs: np.ndarray) -> np.ndarray:
@@ -111,6 +119,44 @@ class DeviceEngine(Engine):
         return J.next_geq_bys_batch(
             self.fi, self._bys_incl, self._tensor(list_ids),
             self._tensor(xs)).cpu().numpy()
+
+    # -- codec-tier device paths --------------------------------------------
+
+    def _build_ef_pack(self) -> dict:
+        rank = self.tier.ef.select_samples()
+        return {"samples": rank,
+                "dev": EF.ef_device_pack(self.tier.ef, rank, self.device)}
+
+    def _ef_next_geq(self, lids, xq) -> np.ndarray:
+        return EF.ef_next_geq_torch(self._ef_pack()["dev"], self._tensor(lids),
+                                    self._tensor(xq)).cpu().numpy()
+
+    def _bm_pack(self) -> dict:
+        key = (self.index_version, "bm")
+        pack = self._ef_sel.get(key)
+        if pack is None:
+            pack = CT.bitmap_device_pack(self.tier.bm, self.device)
+            self._ef_sel.put(key, pack)
+        return pack
+
+    def _bitmap_next_geq(self, lids, xq) -> np.ndarray:
+        """Bitmap lanes run the plain torch program on every device engine:
+        the JAX package has no TPU kernel for this probe either."""
+        return CT.bitmap_next_geq_torch(self._bm_pack(), self._tensor(lids),
+                                        self._tensor(xq)).cpu().numpy()
+
+    def _probe_tiered(self, long_ids, mat) -> np.ndarray:
+        """(B,) ids × (B, M) probes with per-list codec routing: without a
+        tier the backend's ``_probe_dev`` runs; with one the lanes flatten
+        through ``next_geq_batch`` so EF and bitmap lists probe their own
+        stores (the values are identical either way)."""
+        if self.tier is None:
+            return self._probe_dev(long_ids, mat)
+        B, M = np.shape(mat)
+        flat_ids = np.repeat(np.asarray(long_ids, np.int32), M)
+        vals = self.next_geq_batch(flat_ids,
+                                   np.asarray(mat, np.int32).reshape(-1))
+        return np.asarray(vals).reshape(B, M)
 
     def _expand(self, ids, max_len: int) -> torch.Tensor:
         """Batched list expansion on the device: (B,) ids -> (B, max_len)."""
@@ -154,8 +200,8 @@ class DeviceEngine(Engine):
             owner.append(np.full(blocks[-1].shape[0], qi))
         mat = torch.cat(blocks)
         owner = np.concatenate(owner)
-        vals = self._probe_dev(longs[owner].astype(np.int32),
-                               mat.cpu().numpy())
+        vals = self._probe_tiered(longs[owner].astype(np.int32),
+                                  mat.cpu().numpy())
         kept = J.match_mask(self._tensor(vals), mat).cpu().numpy()
         out: list[list[np.ndarray]] = [[] for _ in range(arr.shape[0])]
         for qi, row in zip(owner.tolist(), kept):
@@ -173,8 +219,8 @@ class DeviceEngine(Engine):
             return np.empty(0, dtype=np.int64)
         cand = self._expand_rows(order[0]).reshape(1, -1)
         for i in order[1:]:
-            vals = self._probe_dev(np.asarray([i], np.int32),
-                                   cand.cpu().numpy())
+            vals = self._probe_tiered(np.asarray([i], np.int32),
+                                      cand.cpu().numpy())
             cand = J.match_mask(self._tensor(vals), cand)
         return self.compact(cand[0].cpu().numpy())
 

@@ -4,6 +4,8 @@
   stream: phrase-sum skipping + grammar descent, one thread per lane.
 * ``page_score`` (K2) — block-max page-entry decode of ranked retrieval's
   ScoreRound, one block per directory entry.
+* ``ef_next_geq`` (K3) — Elias-Fano ``next_geq`` of the codec tier: the
+  three high-bits selects and the low-bits search, one thread per lane.
 
 Each kernel is CUDA C++ for ``sm_90a`` under ``repro_torch/csrc/``, built
 on first use by ``nvcc`` into a shared library with a plain C interface
@@ -28,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("list_intersect", "page_score")
+KERNELS = ("list_intersect", "page_score", "ef_next_geq")
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

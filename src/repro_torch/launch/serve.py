@@ -14,7 +14,10 @@ on the chosen device (default: the CUDA kernels on the card):
 * ``--topk K``: a Zipf ranked workload (``ranked_workload``) of BM25
   top-K queries with block-max page pruning, checked against
   ``rank_oracle`` (exact scores and order);
-* ``--query Q``: one boolean query string, planned, explained, executed.
+* ``--query Q``: one boolean query string, planned, explained, executed;
+* ``--codec C``: serve under the per-list codec tier (``repair``, ``ef``,
+  ``bitmap`` or ``adaptive``; default ``REPRO_CODEC``, else ``repair``)
+  and print the tier's list counts and bits per posting.
 
 ``boolean_workload`` and ``ranked_workload`` are copies of the JAX
 package's ``benchmarks/common.py`` generators (same Zipf law over the
@@ -103,7 +106,7 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
                   query: str | None = None, concurrency: int = 0,
                   topk: int = 0, batch_window: int | None = None,
                   num_docs: int = 2000, vocab: int = 4000,
-                  seed: int = 0) -> None:
+                  seed: int = 0, codec: str | None = None) -> None:
     from ..kernels import resolve_device
     from ..serve.query_serve import QueryServer
 
@@ -117,9 +120,13 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
           f"seed {seed}); host Re-Pair built {res.grammar.num_rules} rules "
           f"from {n_sym} postings in {dt:.2f}s")
     srv = QueryServer(res, max_short_len=256, engine=engine, device=device,
-                      batch_window=batch_window)
+                      batch_window=batch_window, codec=codec)
     print(f"engine {engine} on "
           f"{getattr(srv.engine, 'device', 'host')}")
+    if srv.engine.tier is not None:
+        rep = srv.engine.tier.space_report(res)
+        print(f"codec tier [{rep['mode']}]: {rep['counts']} "
+              f"({rep['bits_per_posting']:.2f} bits/posting)")
     rng = np.random.default_rng(0)
     pairs = [tuple(map(int, rng.choice(len(lists), 2, replace=False)))
              for _ in range(n_queries)]
@@ -154,7 +161,8 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
         print(f"hot-path dedup: factor {st['dedup_factor']:.2f} "
               f"({st['real_lanes']} real / {st['unique_lanes']} unique / "
               f"{st['pad_lanes']} pad lanes), memo hit rate "
-              f"{st['memo_hit_rate']:.3f}")
+              f"{st['memo_hit_rate']:.3f}; codec dispatches "
+              f"{st['codec_dispatches']}")
 
     if topk:
         from ..query import rank_oracle
@@ -215,11 +223,16 @@ def main() -> None:
                     help="corpus vocabulary size")
     ap.add_argument("--seed", type=int, default=0,
                     help="corpus and workload seed")
+    ap.add_argument("--codec", default=None,
+                    choices=("repair", "ef", "bitmap", "adaptive"),
+                    help="per-list codec tier: force one codec or "
+                         "'adaptive' cost-model selection (default: "
+                         "repair, or REPRO_CODEC)")
     args = ap.parse_args()
     serve_queries(args.n, args.engine, device=args.device, query=args.query,
                   concurrency=args.concurrency, topk=args.topk,
                   batch_window=args.batch_window, num_docs=args.num_docs,
-                  vocab=args.vocab, seed=args.seed)
+                  vocab=args.vocab, seed=args.seed, codec=args.codec)
 
 
 if __name__ == "__main__":

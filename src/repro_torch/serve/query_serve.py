@@ -12,9 +12,13 @@ The port of ``repro/serve/query_serve.py::QueryServer``.  The server:
   long "short" lists), as a real tier routes outliers.
 
 Pick the backend at construction: ``engine="cuda"`` (default: the
-``list_intersect`` and ``page_score`` kernels), ``"torch"`` (plain
-PyTorch programs, flat or ``paged=True``), or ``"host"`` (CPU
-reference).  ``page_size`` sets the paged stream layout.
+``list_intersect``, ``ef_next_geq`` and ``page_score`` kernels),
+``"torch"`` (plain PyTorch programs, flat or ``paged=True``), or
+``"host"`` (CPU reference).  ``page_size`` sets the paged stream layout.
+``codec`` selects the per-list codec tier: ``"repair"`` (default),
+``"ef"`` / ``"bitmap"`` (forced), ``"adaptive"`` (cost-model choice per
+list), or None to honour ``REPRO_CODEC``; every engine the server builds
+gets it, and ``swap_index`` re-runs codec selection over the new index.
 
 Boolean queries run on the
 :class:`~repro_torch.serve.scheduler.QueryScheduler`: ``submit`` /
@@ -26,7 +30,7 @@ pruning.  ``swap_index(res)`` replaces the served index without a
 restart and bumps the index version that keys every cache.
 
 Not ported yet: ``mesh`` sharding, ``rebuild`` and the device builders,
-the codec tier, the page store and streaming ingestion.
+the page store and streaming ingestion.
 """
 
 from __future__ import annotations
@@ -48,9 +52,10 @@ class QueryServer:
     def __init__(self, res: RePairResult, max_short_len: int = 256,
                  B: int = 8, engine: str = "cuda", device="cuda",
                  page_size: int = DEFAULT_PAGE, paged: bool = False,
-                 batch_window: int | None = None):
+                 batch_window: int | None = None,
+                 codec: str | None = None):
         self._engine_name = engine
-        kwargs: dict = {}
+        kwargs: dict = {"codec": codec}
         if engine in ("torch", "cuda"):
             kwargs.update(max_short_len=max_short_len, B=B,
                           page_size=page_size,

@@ -11,9 +11,14 @@ installed:
   and at page 128 — kernel == plain version == set oracle;
 * ``page_score`` (K2): every block-max directory entry plus count-0 pad
   rows — kernel == plain version == the lists' slices;
+* ``ef_next_geq`` (K3): edge lanes (absent lists, heads, tails, past the
+  tail, negative probes, every bucket boundary) and a random batch over an
+  EF store with ``l == 0`` lists and word-straddling fields — kernel ==
+  plain version == numpy reference == set oracle;
 * ``CudaEngine`` on the card == ``CudaEngine`` on the CPU for probes,
   intersections (short sides longer than one probe row among them) and
-  ranked top-k, with every launch counted.
+  ranked top-k, with every launch counted — and the same under the codec
+  tiers ``ef``, ``bitmap`` and ``adaptive``.
 """
 
 import numpy as np
@@ -23,9 +28,11 @@ import torch
 from strategies import adversarial_lists
 
 from repro_torch import kernels as KR
+from repro_torch.core import ef as EF
 from repro_torch.core import index as TI
 from repro_torch.core.repair import repair_compress
 from repro_torch.engine import CudaEngine
+from repro_torch.kernels.ef_next_geq import ops as K3
 from repro_torch.kernels.list_intersect import ops as K1
 from repro_torch.kernels.page_score import ops as K2
 from repro_torch.query import search_topk
@@ -145,4 +152,74 @@ def test_cuda_engine_on_card_matches_cpu(card, clists, cres):
         np.testing.assert_array_equal(g.docs, w.docs)
         np.testing.assert_array_equal(g.scores, w.scores)
     assert KR.LAUNCHES["list_intersect"] > n0["list_intersect"]
+    assert KR.LAUNCHES["page_score"] > n0["page_score"]
+
+
+def test_ef_next_geq_kernel_matches_plain(card, clists):
+    rng = np.random.default_rng(17)
+    u = 2**31 - 1
+    lists = (list(clists) + [None, np.arange(0, 700), np.arange(3, 900, 2)]
+             + [np.unique(rng.integers(0, u, int(rng.integers(2, 60))))
+                for _ in range(8)] + [np.asarray([2**30 + 9])])
+    store = EF.build_ef_store(lists, u)
+    rank = store.select_samples()
+    pack = K3.pad_ef_operands(store, rank, card)
+    lids, xs = [], []
+    for t, v in enumerate(lists):
+        cand = [0, -1, -2**31, 2**31 - 1, 20_005]
+        if v is not None:
+            v = np.asarray(v, np.int64)
+            l = EF._list_lbits(v.size, int(v[-1]))
+            h = np.unique(v >> l)
+            cand += [*v[:50], *(v[:50] + 1), *(v[:50] - 1), v[-1], v[-1] + 1,
+                     *(h << l), *(((h + 1) << l) - 1)]
+        lids += [t] * len(cand)
+        xs += cand
+    lids = np.concatenate([lids, rng.integers(0, len(lists), 20_000)])
+    xs = np.concatenate([xs, rng.integers(-5, 20_100, 20_000)])
+    xs = np.clip(xs, -2**31, 2**31 - 1).astype(np.int32)
+    lids = lids.astype(np.int32)
+    lt, xt = torch.from_numpy(lids).to(card), torch.from_numpy(xs).to(card)
+    n0 = KR.LAUNCHES["ef_next_geq"]
+    got = K3.ef_next_geq(lt, xt, pack)
+    torch.cuda.synchronize()
+    assert KR.LAUNCHES["ef_next_geq"] == n0 + 1
+    assert torch.equal(got, K3.ef_next_geq_plain(lt, xt, pack))
+    want = EF.ef_next_geq_np(store, rank, lids, xs)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    live = np.asarray([lists[t] is not None for t in lids.tolist()])
+    np.testing.assert_array_equal(
+        want[live], _oracle([v if v is not None else np.zeros(0, np.int64)
+                             for v in lists], lids[live], xs[live]))
+
+
+@pytest.mark.parametrize("codec", ["ef", "bitmap", "adaptive"])
+def test_cuda_engine_codec_on_card_matches_cpu(card, clists, cres, codec):
+    on_card = CudaEngine(cres, device=card, codec=codec)
+    on_cpu = CudaEngine(cres, device="cpu", codec=codec)
+    assert np.array_equal(on_card.tier.codec, on_cpu.tier.codec)
+    lids, xs = _lanes(clists, cres.universe, n=3000)
+    n0 = dict(KR.LAUNCHES)
+    np.testing.assert_array_equal(on_card.next_geq_batch(lids, xs),
+                                  on_cpu.next_geq_batch(lids, xs))
+    np.testing.assert_array_equal(on_card.member_batch(lids, xs),
+                                  on_cpu.member_batch(lids, xs))
+    for algo in ("svs", "bys"):
+        np.testing.assert_array_equal(
+            on_card.dispatch_round(lids[:777], xs[:777], algo),
+            on_cpu.dispatch_round(lids[:777], xs[:777], algo))
+    assert on_card.lane_stats == on_cpu.lane_stats
+    assert on_card.codec_dispatches == on_cpu.codec_dispatches
+    pairs = [(0, 12), (13, 2), (15, 16), (3, 14), (12, 13), (14, 12)]
+    for g, w in zip(on_card.intersect_pairs(pairs),
+                    on_cpu.intersect_pairs(pairs)):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(on_card.intersect_multi([12, 13, 14]),
+                                  on_cpu.intersect_multi([12, 13, 14]))
+    for bag in ([15, 16], [0, 12, 13]):
+        g, w = search_topk(on_card, bag, 10), search_topk(on_cpu, bag, 10)
+        np.testing.assert_array_equal(g.docs, w.docs)
+        np.testing.assert_array_equal(g.scores, w.scores)
+    if on_card.tier.ef is not None:
+        assert KR.LAUNCHES["ef_next_geq"] > n0["ef_next_geq"]
     assert KR.LAUNCHES["page_score"] > n0["page_score"]

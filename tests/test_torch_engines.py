@@ -229,13 +229,16 @@ def test_registry_and_unported_options(results, monkeypatch):
     eng = make_engine("torch", results[1], device="cpu")
     assert eng.device == torch.device("cpu")
     assert eng.fi.c.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="codec"):
-        make_engine("cuda", results[1], device="cpu", codec="ef")
+    monkeypatch.delenv("REPRO_CODEC", raising=False)
+    assert eng.tier is None                       # repair: no tier at all
+    ef = make_engine("cuda", results[1], device="cpu", codec="ef")
+    assert ef.tier.mode == "ef" and ef.tier.counts()["ef"] > 0
     with pytest.raises(NotImplementedError, match="store"):
         make_engine("host", results[1], store="mmap")
     monkeypatch.setenv("REPRO_CODEC", "adaptive")
-    with pytest.raises(NotImplementedError, match="codec"):
-        make_engine("torch", results[1], device="cpu")
+    ad = make_engine("torch", results[1], device="cpu")
+    assert ad.tier.mode == "adaptive"
+    assert sum(ad.tier.counts().values()) == len(results[1].orig_lengths)
     monkeypatch.setenv("REPRO_CODEC", "repair")
     monkeypatch.setenv("REPRO_STORE", "memory")
     with pytest.raises(NotImplementedError, match="store"):

@@ -112,6 +112,23 @@ def test_cuda_entry_points_raise_without_card(no_card, tiny_res):
         np.intersect1d(tiny_res.decode_list(0), tiny_res.decode_list(1)))
 
 
+def test_codec_entry_points_raise_without_card(no_card, tiny_res):
+    """The codec tier changes nothing about where the entry points run:
+    without a card they raise before building anything, and with
+    ``device="cpu"`` they serve through the plain versions."""
+    with pytest.raises(RuntimeError, match="is_available"):
+        QueryServer(tiny_res, codec="ef")
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_engine("cuda", tiny_res, codec="adaptive")
+    with pytest.raises(RuntimeError, match="is_available"):
+        launch.serve_queries(4, num_docs=40, vocab=60, codec="ef")
+    srv = QueryServer(tiny_res, device="cpu", codec="ef")
+    assert srv.engine.tier.counts()["ef"] == tiny_res.num_lists
+    np.testing.assert_array_equal(
+        srv.search("2 AND 3"),
+        np.intersect1d(tiny_res.decode_list(2), tiny_res.decode_list(3)))
+
+
 def test_resolve_device_rejects_other_devices():
     assert KR.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
