@@ -8,7 +8,7 @@ exits non-zero:
 
 1. device  — the card's name, and its name and power limit from
    ``nvidia-smi``;
-2. build   — the three CUDA kernels compiled by ``nvcc`` into
+2. build   — the four CUDA kernels compiled by ``nvcc`` into
    ``build_torch/`` (one process per source, started together), with
    ptxas reports;
 3. index   — a Zipf collection (``zipf_corpus``: 20,000 docs, vocabulary
@@ -17,6 +17,13 @@ exits non-zero:
    operand packs and the block-max score directory on the card.  Then the
    codec tier is built for ``adaptive`` and for ``ef`` over the same
    index: per-codec list counts, bits per posting, build time;
+3b. construct — the same postings built on the card by ``CudaBuilder``
+   (every round's pair histogram counted by K4, ``pair_count``) and by
+   ``TorchBuilder``, then on the host by ``HostBuilder``, all at the
+   capped-counting configuration ``table_cap=4096``, 64 pairs per round:
+   the three grammars must be bit-identical and every list must decode
+   to its postings; K4 must launch once per round of the cuda build
+   (counts zeroed just before it, read just after);
 4. kernels — one routed K1 (``list_intersect``) batch of 8,192 lanes
    from the Zipf boolean workload's conjunctions plus edge lanes, one K2
    (``page_score``) batch of real score-directory entries, and one K3
@@ -24,7 +31,12 @@ exits non-zero:
    (the same conjunction probes plus edge lanes: bucket boundaries, heads,
    tails, past the tail, negative probes), each run by its kernel and its
    plain PyTorch version on the card: outputs must be exactly equal (and
-   equal a numpy oracle); all timed with CUDA events and
+   equal a numpy oracle); K4 on round 1's candidate table and pair stream
+   (captured from the cuda build) and on an edge batch (sentinels,
+   duplicates, a table of 1,037, invalid and negative slots; plus an
+   all-invalid and a one-slot stream), against its plain version and
+   numpy oracles, beside ``torch.unique`` + ``searchsorted`` on round 1
+   (its library time); all timed with CUDA events and
    ``torch.profiler``;
 5. serve   — 256 Zipf boolean queries at concurrency 64 (``search_many``)
    and 64 ranked top-10 queries (``search_topk_many``) through the
@@ -38,11 +50,18 @@ exits non-zero:
    ``searchsorted`` over the uncompressed postings that computes the same
    ``next_geq`` answers (the library time of K1 and K3);
 6. profile — a second, smaller serve pass under ``torch.profiler``: the
-   device's busy and idle share and where its time went.
+   device's busy and idle share and where its time went (phase 3b does
+   the same for a second cuda build);
+7. rebuild — ``QueryServer.rebuild`` of the running ``repair`` server
+   with the cuda builder of phase 3b (K4 once per round, the grammar of
+   3b again, the index version moved), then the same 256 boolean and 64
+   ranked queries served from the rebuilt index (K1 and K2 must launch),
+   every answer checked against ``naive_eval`` / ``rank_oracle``.
 
-The last lines are the ``kernels`` JSON line (per kernel: launches while
-serving, and times and bounds at its largest serve launch, with every
-batch it was held on under ``shapes``), the ``nvidia-smi`` line, and
+The last lines are the ``kernels`` JSON line (per kernel: launches on its
+path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
+the cuda build — and times and bounds at its main launch, with every batch
+it was held on under ``shapes``), the ``nvidia-smi`` line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,6 +85,9 @@ SCALAR_OPS_PER_S = 67e12
 BOOLEAN_QUERIES, CONCURRENCY, RANKED_QUERIES, TOPK = 256, 64, 64, 10
 K1_LANES, K2_ENTRIES, K3_LANES = 8192, 512, 8192
 TIER_MODES = ("adaptive", "ef")
+#: the device builders' [CN07] capped-counting configuration (the one the
+#: reference gives its pallas builder on real corpora)
+BUILD_TABLE_CAP = 4096
 
 
 def _nvidia_smi() -> str:
@@ -102,12 +124,12 @@ def _device_ms(fn, reps: int) -> tuple[float, float]:
     return dev_us / reps / 1e3, start.elapsed_time(stop) / reps
 
 
-def _serve_profile(srv, queries, bags) -> dict:
-    """A second serve pass (fresh queries, warm engine) under
-    ``torch.profiler`` and ``cProfile`` at once: its wall ms, the
-    device-busy ms (every kernel and copy, summed), the five largest
-    device-time entries, and the eight host functions with the most self
-    time (both profilers slow the host, so read these as shares)."""
+def _profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and ``cProfile`` at once:
+    its wall ms, the device-busy ms (every kernel and copy, summed), the
+    number of device activities, the five largest device-time entries,
+    and the eight host functions with the most self time (both profilers
+    slow the host, so read these as shares)."""
     import cProfile
     import pstats
     import torch
@@ -117,20 +139,32 @@ def _serve_profile(srv, queries, bags) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         host.enable()
-        srv.search_many(queries)
-        srv.search_topk_many(bags, TOPK)
+        fn()
         torch.cuda.synchronize()
         host.disable()
     wall = (time.perf_counter() - t0) * 1e3
     dev = [(e.key, getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
-           for e in prof.key_averages()]
+                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3,
+            e.count) for e in prof.key_averages()]
     dev = sorted((d for d in dev if d[1] > 0), key=lambda d: -d[1])
     stats = pstats.Stats(host).stats
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:8]
-    return dict(wall=wall, busy=sum(ms for _, ms in dev), device=dev[:5],
+    return dict(wall=wall, busy=sum(ms for _, ms, _ in dev),
+                events=sum(n for _, _, n in dev),
+                device=[(k, ms) for k, ms, _ in dev[:5]],
                 host=[(f"{Path(f).name}:{line}({fn})", tt * 1e3)
                       for (f, line, fn), (_, _, tt, _, _) in top])
+
+
+def _print_profile(tag: str, what: str, prof: dict) -> None:
+    busy = 100 * prof["busy"] / prof["wall"]
+    print(f"[{tag}] {what}, profilers on: wall {prof['wall']:.1f} ms, "
+          f"device busy {prof['busy']:.1f} ms ({busy:.2f}%), idle "
+          f"{100 - busy:.2f}%, {prof['events']} device activities")
+    print(f"[{tag}] device: " + "; ".join(
+        f"{k[:70]} {ms:.2f} ms" for k, ms in prof["device"]))
+    print(f"[{tag}] host self time: " + "; ".join(
+        f"{k} {ms:.0f} ms" for k, ms in prof["host"]))
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -359,6 +393,160 @@ def k3_traffic(lids, xs, pack) -> tuple[float, float]:
     uniq = sum(int(torch.unique(torch.cat(v)).numel()) if v else 0
                for v in touched.values())
     return float(12 * q + dir_bytes + 4 * uniq), float(ops)
+
+
+def k4_traffic(ca, pa, vm) -> tuple[float, float]:
+    """Bytes and int32 operations one K4 launch needs on this candidate
+    table and pair stream: each input read once (two int32 per candidate,
+    three per slot), the counts written once; per slot a validity test,
+    and per valid slot its 64-bit key (3 operations) and a binary search
+    of ``ceil(log2 K)`` steps (2 operations each) into the candidate
+    table, plus the match test and the count."""
+    import math
+    K, N = int(ca.numel()), int(pa.numel())
+    valid = int((vm != 0).sum())
+    steps = math.ceil(math.log2(max(K, 2)))
+    return float(12 * K + 12 * N), float(N + valid * (5 + 2 * steps) + K)
+
+
+def _pair_count_np(ca, cb, pa, pb, vm):
+    """numpy counts of the candidate pairs over the valid slots: one
+    ``np.unique`` of the slots' pairs, then a lookup per candidate."""
+    import numpy as np
+    keys = lambda a, b: a.astype(np.int64) * 2**32 + (b.astype(np.int64)
+                                                       & 0xFFFFFFFF)
+    uniq, cnt = np.unique(keys(pa, pb)[vm != 0], return_counts=True)
+    uniq = np.append(uniq, np.iinfo(np.int64).max)   # past every real key
+    cnt = np.append(cnt, 0)
+    k = keys(ca, cb)
+    pos = np.searchsorted(uniq, k)
+    return np.where((uniq[pos] == k) & (ca >= 0), cnt[pos], 0
+                    ).astype(np.int32)
+
+
+def _unique_counts(ca, cb, pa, pb, vm):
+    """The library yardstick of K4: the valid slots' 64-bit pair keys
+    counted by one ``torch.unique(..., return_counts=True)``, each
+    candidate's count read back with one ``torch.searchsorted``.  Timed
+    beside the kernel, used nowhere in the port."""
+    import torch
+    from repro_torch.kernels.pair_count import pair_keys
+    uniq, cnt = torch.unique(pair_keys(pa, pb)[vm != 0], return_counts=True)
+    k = pair_keys(ca, cb)
+    pos = torch.searchsorted(uniq, k).clamp(max=max(uniq.numel() - 1, 0))
+    hit = (uniq[pos] == k) & (ca >= 0)
+    return torch.where(hit, cnt[pos], 0).to(torch.int32)
+
+
+def _k4_edge(rng):
+    """K4's edge batch: K = 1,037 candidates (no multiple of 128 or 512)
+    with ``-1`` sentinels, a sentinel left beside a real right, duplicate
+    candidates, and candidates absent from the stream, over a
+    300,000-slot stream with invalid slots and ``-1`` symbols; plus an
+    all-invalid stream and a one-slot stream (run unheld)."""
+    import numpy as np
+    n = 300_000
+    seq = rng.integers(0, 60, n + 1).astype(np.int32)
+    seq[:40] = -1
+    active = rng.random(n + 1) < 0.8
+    ca = rng.integers(0, 60, 1037).astype(np.int32)
+    cb = rng.integers(0, 60, 1037).astype(np.int32)
+    ca[100:300] = -1
+    ca[300:310] = -1
+    cb[300:310] = seq[50:60]
+    ca[400:600], cb[400:600] = ca[:200], cb[:200]        # duplicates
+    ca[600:650] = 70 + np.arange(50)                     # absent pairs
+    return seq, active, ca, cb
+
+
+def _decode_check(res, lists) -> None:
+    """Every list of ``res`` decodes to its postings: the whole stream is
+    expanded level by level with numpy (each rule symbol replaced by its
+    two children) and compared with the lists' heads and d-gaps."""
+    import numpy as np
+    g = res.grammar
+    syms = res.seq.astype(np.int64)
+    owner = np.repeat(np.arange(res.num_lists), np.diff(res.starts))
+    while (syms >= g.num_terminals).any():
+        rule = syms >= g.num_terminals
+        reps = np.where(rule, 2, 1)
+        at = np.cumsum(reps) - reps
+        kids = g.rules[syms[rule] - g.num_terminals]
+        syms, owner = np.repeat(syms, reps), np.repeat(owner, reps)
+        syms[at[rule]], syms[at[rule] + 1] = kids[:, 0], kids[:, 1]
+    want = np.concatenate([np.diff(np.asarray(l, np.int64)) for l in lists])
+    if not (np.array_equal(syms, want)
+            and np.array_equal(np.bincount(owner, minlength=len(lists)),
+                               [len(l) - 1 for l in lists])
+            and np.array_equal(res.first_values, [l[0] for l in lists])):
+        raise SystemExit("[construct] a decoded list differs from its "
+                         "postings")
+
+
+def _same_grammar(a, b) -> bool:
+    import numpy as np
+    return (a.grammar.num_terminals == b.grammar.num_terminals
+            and all(np.array_equal(x, y) for x, y in (
+                (a.grammar.rules, b.grammar.rules),
+                (a.grammar.sums, b.grammar.sums),
+                (a.grammar.lengths, b.grammar.lengths),
+                (a.grammar.depths, b.grammar.depths), (a.seq, b.seq),
+                (a.starts, b.starts), (a.first_values, b.first_values))))
+
+
+def _construct(lists) -> dict:
+    """Build ``lists`` with the cuda, torch and host builders at the
+    capped-counting configuration; the launch counts are zeroed just
+    before the cuda build and read just after, and round 1's K4 inputs
+    are kept.  Checks the three grammars bit-identical and every list
+    decoded."""
+    import torch
+    from repro_torch import kernels as KR
+    from repro_torch.build import CudaBuilder, HostBuilder, TorchBuilder
+    from repro_torch.build import cuda_builder
+    cfg = dict(table_cap=BUILD_TABLE_CAP, pairs_per_round=64)
+    bld = CudaBuilder(device="cuda", **cfg)
+    first = []
+    real = cuda_builder.pair_count
+
+    def recording(*a):
+        if not first:
+            first.append(tuple(t.clone() for t in a))
+        return real(*a)
+
+    cuda_builder.pair_count = recording
+    try:
+        KR.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bld.build_grammar(lists)
+        t_cuda = time.perf_counter() - t0
+        launches = dict(KR.LAUNCHES)
+    finally:
+        cuda_builder.pair_count = real
+    tb = TorchBuilder(device="cuda", **cfg)
+    t0 = time.perf_counter()
+    res_torch = tb.build_grammar(lists)
+    t_torch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_host = HostBuilder(**cfg).build_grammar(lists)
+    t_host = time.perf_counter() - t0
+    if not (_same_grammar(res, res_torch) and _same_grammar(res, res_host)):
+        raise SystemExit("[construct] the cuda, torch and host grammars "
+                         "differ")
+    for r in (res, res_torch, res_host):
+        _decode_check(r, lists)
+    if launches["pair_count"] != bld.stats["rounds"] \
+            or launches["pair_count"] == 0:
+        raise SystemExit(f"[construct] pair_count launched "
+                         f"{launches['pair_count']} times in "
+                         f"{bld.stats['rounds']} rounds")
+    if tb.stats != bld.stats:
+        raise SystemExit(f"[construct] torch rounds {tb.stats} differ from "
+                         f"cuda rounds {bld.stats}")
+    return dict(builder=bld, res=res, launches=launches, round1=first[0],
+                t_cuda=t_cuda, t_torch=t_torch, t_host=t_host,
+                stats=bld.stats)
 
 
 def _k1_lanes(lists, universe, lengths, seed: int):
@@ -600,6 +788,8 @@ def main() -> int:
     from repro_torch.kernels.ef_next_geq import ops as K3
     from repro_torch.kernels.list_intersect import ops as K1
     from repro_torch.kernels.page_score import ops as K2
+    from repro_torch.kernels.pair_count import ops as K4
+    from repro_torch.kernels.pair_count import pair_count_ref
     from repro_torch.launch.serve import (boolean_workload, build_corpus,
                                           ranked_workload)
     from repro_torch.serve import QueryServer
@@ -653,6 +843,24 @@ def main() -> int:
               f"({rep['total_bits'] / 8 / 2**20:.2f} MiB); EF store "
               f"{ef.lo_words.size} low + {ef.hi_words.size} high words, max "
               f"bucket {ef.max_bucket}; tier built in {t_tier:.2f} s")
+
+    # 3b. construct: the same postings built on the card and the host
+    con = _construct(lists)
+    st, gr = con["stats"], con["res"].grammar
+    budget = con["builder"].config.budget * 2 ** st["growths"]
+    print(f"[construct] table_cap {BUILD_TABLE_CAP}, 64 pairs per round: "
+          f"{gr.num_rules} rules, {con['res'].seq.size} stream symbols, T "
+          f"{gr.num_terminals}, T + rule budget {gr.num_terminals + budget}"
+          f"; {st['rounds']} rounds, {st['growths']} rule-budget growths, "
+          f"{st['compactions']} compactions, {st['fallbacks']} exact "
+          f"fallbacks; wall time cuda {con['t_cuda']:.3f} s, torch "
+          f"{con['t_torch']:.3f} s, host {con['t_host']:.2f} s; the three "
+          f"grammars bit-identical, every list decodes to its postings; "
+          f"pair_count launched {con['launches']['pair_count']} times (= "
+          f"rounds)")
+    _print_profile("construct", f"a second cuda build ({st['rounds']} "
+                   f"rounds)", _profile(
+                       lambda: con["builder"].build_grammar(lists)))
 
     # 4. kernels against their plain versions, on the card
     lids, xs = _k1_lanes(lists, res.universe, lengths, args.seed)
@@ -719,6 +927,52 @@ def main() -> int:
                    "'ef' tier", size=int(lids3.size), **k3_bool)
     _print_hold("ef_next_geq", k3_bool, "lanes",
                 "plain, numpy reference and oracle")
+
+    r1 = con["round1"]
+    ca, cb, pa, pb, vm = r1
+    out, k4_r1 = _hold("pair_count", K4.pair_count, K4.pair_count_plain, r1,
+                       {}, lambda: k4_traffic(ca, pa, vm))
+    got = out.cpu().numpy()
+    if not np.array_equal(got, _pair_count_np(*(t.cpu().numpy()
+                                                 for t in r1))):
+        raise SystemExit("[kernels] pair_count disagrees with the numpy "
+                         "counts on round 1")
+    if not torch.equal(_unique_counts(*r1), out):
+        raise SystemExit("[kernels] the unique-count yardstick disagrees "
+                         "with pair_count")
+    k4_r1 = dict(batch=f"round 1 of the cuda build, {int(ca.numel())} "
+                 f"candidates ({int((ca >= 0).sum())} live)",
+                 size=int(pa.numel()),
+                 library_ms=_device_ms(lambda: _unique_counts(*r1), 100)[0],
+                 **k4_r1)
+    _print_hold("pair_count", k4_r1, "pair slots", "plain and numpy")
+    seq, active, ca_e, cb_e = _k4_edge(np.random.default_rng(args.seed))
+    stream = K4.pair_stream(torch.from_numpy(seq).cuda(),
+                            torch.from_numpy(active).cuda(), seq.size)
+    cand = [torch.from_numpy(a).cuda() for a in (ca_e, cb_e)]
+    out, k4_edge = _hold("pair_count", K4.pair_count, K4.pair_count_plain,
+                         (*cand, *stream), {},
+                         lambda: k4_traffic(cand[0], stream[0], stream[2]))
+    got = out.cpu().numpy()
+    if not (np.array_equal(got, pair_count_ref(seq, active, seq.size, ca_e,
+                                               cb_e))
+            and np.array_equal(got[400:600], got[:200])
+            and not got[100:310].any() and not got[600:650].any()):
+        raise SystemExit("[kernels] pair_count's edge batch disagrees with "
+                         "pair_count_ref")
+    none = torch.zeros_like(stream[2])
+    one = [torch.tensor(v, dtype=torch.int32).cuda()
+           for v in ([3, 4, 3], [4, 3, 4], [3], [4], [1])]
+    if K4.pair_count(*cand, stream[0], stream[1], none).any() \
+            or K4.pair_count(*one).tolist() != [1, 0, 1]:
+        raise SystemExit("[kernels] pair_count miscounts an all-invalid or "
+                         "a one-slot stream")
+    k4_edge = dict(batch="edge batch: 1,037 candidates with sentinels and "
+                   "duplicates, invalid and -1 slots", size=int(seq.size),
+                   **k4_edge)
+    _print_hold("pair_count", k4_edge, "pair slots",
+                "plain and pair_count_ref (and all-invalid / one-slot "
+                "streams exact)")
 
     # 5. serve, once per codec; launch counts zeroed just before each run
     queries = boolean_workload(len(lists), lengths,
@@ -826,27 +1080,53 @@ def main() -> int:
                     launches, k2_srv, k2_dir),
         _kernel_row("ef_next_geq", "src/repro_torch/csrc/ef_next_geq.cu",
                     "src/repro/kernels/ef_next_geq/ef_next_geq.py:131",
-                    k3_launches, k3_srv, k3_bool)]
+                    k3_launches, k3_srv, k3_bool),
+        _kernel_row("pair_count", "src/repro_torch/csrc/pair_count.cu",
+                    "src/repro/kernels/pair_count/pair_count.py:50",
+                    con["launches"], k4_r1, k4_edge)]
     print("[kernels] " + "; ".join(
-        f"{r['name']}: {r['launches']} launches while serving, 0 mismatches, "
-        f"{r['ms']:.5f} ms at the largest serve launch" for r in report)
+        f"{r['name']}: {r['launches']} launches on its path, 0 mismatches, "
+        f"{r['ms']:.5f} ms at its main launch" for r in report)
         + f" (ef_next_geq launches counted under codec 'ef'; under "
-        f"'adaptive' {runs['adaptive'][1]['launches']['ef_next_geq']})")
+        f"'adaptive' {runs['adaptive'][1]['launches']['ef_next_geq']}; "
+        f"pair_count's in the cuda build)")
 
-    prof = _serve_profile(
-        srv, boolean_workload(len(lists), lengths, n_queries=BOOLEAN_QUERIES
-                              // 4, seed=args.seed + 1),
-        ranked_workload(len(lists), lengths, n_queries=RANKED_QUERIES // 4,
-                        seed=args.seed + 1))
-    busy = 100 * prof["busy"] / prof["wall"]
-    print(f"[profile] second serve pass ({BOOLEAN_QUERIES // 4} boolean + "
-          f"{RANKED_QUERIES // 4} ranked queries, profilers on): wall "
-          f"{prof['wall']:.1f} ms, device busy {prof['busy']:.1f} ms "
-          f"({busy:.2f}%), idle {100 - busy:.2f}%")
-    print("[profile] device: " + "; ".join(
-        f"{k[:70]} {ms:.2f} ms" for k, ms in prof["device"]))
-    print("[profile] host self time: " + "; ".join(
-        f"{k} {ms:.0f} ms" for k, ms in prof["host"]))
+    q_prof = boolean_workload(len(lists), lengths,
+                              n_queries=BOOLEAN_QUERIES // 4,
+                              seed=args.seed + 1)
+    b_prof = ranked_workload(len(lists), lengths,
+                             n_queries=RANKED_QUERIES // 4, seed=args.seed + 1)
+    _print_profile("profile", f"second serve pass ({BOOLEAN_QUERIES // 4} "
+                   f"boolean + {RANKED_QUERIES // 4} ranked queries)",
+                   _profile(lambda: (srv.search_many(q_prof),
+                                     srv.search_topk_many(b_prof, TOPK))))
+
+    # 7. rebuild the running repair server with the cuda builder, serve
+    version = srv.version
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    res2 = srv.rebuild(lists, builder=con["builder"])
+    torch.cuda.synchronize()
+    t_rebuild = time.perf_counter() - t0
+    k4_rebuild = KR.LAUNCHES["pair_count"]
+    if srv.version != version + 1 or not _same_grammar(res2, con["res"]) \
+            or k4_rebuild != con["stats"]["rounds"]:
+        raise SystemExit(f"[rebuild] version {version} -> {srv.version}, "
+                         f"{k4_rebuild} pair_count launches: the rebuild "
+                         f"did not build and swap the construct grammar")
+    run = _serve(srv, queries, bags, lists, res2.universe, wrappers)
+    if run["launches"]["list_intersect"] == 0 \
+            or run["launches"]["page_score"] == 0:
+        raise SystemExit(f"[rebuild] a kernel never launched while serving "
+                         f"the rebuilt index: {run['launches']}")
+    print(f"[rebuild] srv.rebuild(lists, builder=CudaBuilder) in "
+          f"{t_rebuild:.3f} s ({k4_rebuild} pair_count launches), index "
+          f"version {version} -> {srv.version}, "
+          f"{res2.grammar.num_rules} rules; then {len(queries)} boolean "
+          f"queries at {len(queries) / run['t_bool']:.1f} q/s and "
+          f"{len(bags)} ranked at {len(bags) / run['t_rank']:.1f} q/s, "
+          f"launches {run['launches']}; all answers equal naive_eval / "
+          f"rank_oracle")
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

@@ -89,7 +89,8 @@ def _refuse_store(store) -> None:
     kind = store if store is not None else os.environ.get("REPRO_STORE", "")
     if str(kind).strip().lower() not in ("", "none", "off", "0"):
         raise NotImplementedError(
-            f"page store {kind!r}: the out-of-core tier is not ported")
+            f"page store {kind!r}: the out-of-core tier is not ported "
+            f"(roadmap item 9)")
 
 
 class Engine(abc.ABC):

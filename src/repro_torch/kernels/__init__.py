@@ -6,6 +6,9 @@
   ScoreRound, one block per directory entry.
 * ``ef_next_geq`` (K3) — Elias-Fano ``next_geq`` of the codec tier: the
   three high-bits selects and the low-bits search, one thread per lane.
+* ``pair_count`` (K4) — the pair histogram of device Re-Pair
+  construction: each pair slot binary-searches a sorted candidate table in
+  shared memory, one thread per slot.
 
 Each kernel is CUDA C++ for ``sm_90a`` under ``repro_torch/csrc/``, built
 on first use by ``nvcc`` into a shared library with a plain C interface
@@ -30,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("list_intersect", "page_score", "ef_next_geq")
+KERNELS = ("list_intersect", "page_score", "ef_next_geq", "pair_count")
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,8 +3,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --tier queries --engine cuda
 
 Builds a Zipf synthetic collection (``index/corpus.py::zipf_corpus``),
-compresses it with the host Re-Pair, and serves it from the chosen engine
-on the chosen device (default: the CUDA kernels on the card):
+compresses it with the chosen builder (``--builder``: ``host`` Re-Pair by
+default, ``torch`` rounds or ``cuda`` rounds over the ``pair_count``
+kernel on the device; ``cuda`` gets the [CN07] capped-counting table
+``table_cap=4096`` its candidate table holds exactly), and serves it from
+the chosen engine on the chosen device (default: the CUDA kernels on the
+card):
 
 * a batch of 2-term AND queries (``and_batch``), spot-checked against
   numpy set intersection;
@@ -17,7 +21,11 @@ on the chosen device (default: the CUDA kernels on the card):
 * ``--query Q``: one boolean query string, planned, explained, executed;
 * ``--codec C``: serve under the per-list codec tier (``repair``, ``ef``,
   ``bitmap`` or ``adaptive``; default ``REPRO_CODEC``, else ``repair``)
-  and print the tier's list counts and bits per posting.
+  and print the tier's list counts and bits per posting;
+* ``--refreshes N``: grow the collection N times by ``GROWTH_DOCS``
+  documents of a ``PostingsSource`` (new documents only), rebuild it with
+  the same builder, hot-swap it in (``QueryServer.rebuild``) and check 8
+  conjunctions against ``np.intersect1d`` after each swap.
 
 ``boolean_workload`` and ``ranked_workload`` are copies of the JAX
 package's ``benchmarks/common.py`` generators (same Zipf law over the
@@ -31,6 +39,9 @@ import argparse
 import time
 
 import numpy as np
+
+#: documents each ``--refreshes`` version adds
+GROWTH_DOCS = 500
 
 
 def boolean_workload(num_lists, lengths, n_queries=64, seed=0,
@@ -91,14 +102,22 @@ def ranked_workload(num_lists, lengths, n_queries=32, seed=0,
     return out
 
 
-def build_corpus(num_docs: int, vocab: int, seed: int):
-    """Postings of the Zipf collection and their Re-Pair compression."""
-    from ..core.repair import repair_compress
+def zipf_postings(num_docs: int, vocab: int, seed: int):
+    """Postings lists of the Zipf collection and the term id of each."""
     from ..index.corpus import zipf_corpus
 
     corpus = zipf_corpus(num_docs=num_docs, vocab_size=vocab,
                          mean_doc_len=120, seed=seed)
     lists = corpus.postings()
+    return lists, corpus.term_ids
+
+
+def build_corpus(num_docs: int, vocab: int, seed: int):
+    """Postings of the Zipf collection and their host Re-Pair
+    compression."""
+    from ..core.repair import repair_compress
+
+    lists, _ = zipf_postings(num_docs, vocab, seed)
     return lists, repair_compress(lists)
 
 
@@ -106,19 +125,28 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
                   query: str | None = None, concurrency: int = 0,
                   topk: int = 0, batch_window: int | None = None,
                   num_docs: int = 2000, vocab: int = 4000,
-                  seed: int = 0, codec: str | None = None) -> None:
+                  seed: int = 0, codec: str | None = None,
+                  builder: str = "host", refreshes: int = 0) -> None:
+    from ..build import make_builder
     from ..kernels import resolve_device
     from ..serve.query_serve import QueryServer
 
-    if engine != "host":
+    if engine != "host" or builder != "host":
         resolve_device(device)        # no card: raise before the build
+    # the cuda builder counts against a static candidate table, so give
+    # it the [CN07] capped-counting config its table holds exactly (host
+    # and torch accept the same knob; uncapped they count everything)
+    bld = make_builder(builder, device=device,
+                       **({"table_cap": 4096} if builder == "cuda" else {}))
+    lists, term_ids = zipf_postings(num_docs, vocab, seed)
     t0 = time.perf_counter()
-    lists, res = build_corpus(num_docs, vocab, seed)
+    res = bld.build_grammar(lists)
     dt = time.perf_counter() - t0
     n_sym = sum(len(l) for l in lists)
     print(f"corpus: {num_docs} docs / {len(lists)} lists (vocab {vocab}, "
-          f"seed {seed}); host Re-Pair built {res.grammar.num_rules} rules "
-          f"from {n_sym} postings in {dt:.2f}s")
+          f"seed {seed}); [{builder}] Re-Pair built "
+          f"{res.grammar.num_rules} rules from {n_sym} postings in "
+          f"{dt:.2f}s")
     srv = QueryServer(res, max_short_len=256, engine=engine, device=device,
                       batch_window=batch_window, codec=codec)
     print(f"engine {engine} on "
@@ -194,6 +222,34 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
         print(f"{hits.size} hits in {dt*1e3:.1f} ms (oracle-verified); "
               f"first 10: {hits[:10].tolist()}")
 
+    if refreshes:
+        # grow the served collection by one version's new documents of a
+        # PostingsSource (doc ids continue after the base corpus), rebuild
+        # with the same builder, hot-swap, keep answering
+        from ..data import PostingsSource
+        src = PostingsSource(base_docs=num_docs, growth_docs=GROWTH_DOCS,
+                             vocab=vocab, mean_doc_len=120, seed=seed)
+        inv = {int(t): l.tolist() for t, l in zip(term_ids, lists)}
+        n_docs = num_docs
+        for v in range(1, refreshes + 1):
+            for terms in src.deltas_at(v):
+                for t in terms.tolist():
+                    inv.setdefault(int(t), []).append(n_docs)
+                n_docs += 1
+            new_lists = [np.asarray(inv[t], np.int64) for t in sorted(inv)]
+            t0 = time.perf_counter()
+            srv.rebuild(new_lists, builder=bld)
+            dt = time.perf_counter() - t0
+            q = [tuple(map(int, rng.choice(len(new_lists), 2, replace=False)))
+                 for _ in range(8)]
+            for (a, b), got in zip(q, srv.and_batch(q)):
+                np.testing.assert_array_equal(
+                    got, np.intersect1d(new_lists[a], new_lists[b]))
+            print(f"refresh v{v}: +{GROWTH_DOCS} docs -> {len(new_lists)} "
+                  f"lists / {sum(len(l) for l in new_lists)} postings "
+                  f"rebuilt [{builder}] + swapped in {dt:.2f}s (index "
+                  f"version {srv.version}), serving verified")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -228,11 +284,19 @@ def main() -> None:
                     help="per-list codec tier: force one codec or "
                          "'adaptive' cost-model selection (default: "
                          "repair, or REPRO_CODEC)")
+    ap.add_argument("--builder", choices=("host", "torch", "cuda"),
+                    default="host",
+                    help="construction backend (repro_torch.build); torch "
+                         "and cuda build on --device")
+    ap.add_argument("--refreshes", type=int, default=0,
+                    help="after serving, grow the collection, rebuild and "
+                         "hot-swap the index this many times")
     args = ap.parse_args()
     serve_queries(args.n, args.engine, device=args.device, query=args.query,
                   concurrency=args.concurrency, topk=args.topk,
                   batch_window=args.batch_window, num_docs=args.num_docs,
-                  vocab=args.vocab, seed=args.seed, codec=args.codec)
+                  vocab=args.vocab, seed=args.seed, codec=args.codec,
+                  builder=args.builder, refreshes=args.refreshes)
 
 
 if __name__ == "__main__":

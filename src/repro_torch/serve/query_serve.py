@@ -29,8 +29,15 @@ top-k (``search_topk``) runs on the same scheduler with block-max page
 pruning.  ``swap_index(res)`` replaces the served index without a
 restart and bumps the index version that keys every cache.
 
-Not ported yet: ``mesh`` sharding, ``rebuild`` and the device builders,
-the page store and streaming ingestion.
+**Index refresh without restarting**: ``rebuild(lists)`` compresses a new
+postings snapshot through the backend-pluggable build subsystem
+(``repro_torch.build``, default the ``torch`` builder, on the server's
+device), stands up a complete replacement engine off to the side, and
+swaps it in with one reference assignment — queries in flight on the old
+engine finish on the old index, the next batch sees the new one.
+
+Not ported yet: ``mesh`` sharding, the page store and streaming
+ingestion.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..build import BuildConfig, Builder, make_builder
 from ..core.index import DEFAULT_PAGE
 from ..core.repair import RePairResult
 from ..engine import make_engine
@@ -55,11 +63,13 @@ class QueryServer:
                  batch_window: int | None = None,
                  codec: str | None = None):
         self._engine_name = engine
+        #: where rebuild() runs a device builder named by string
+        self._device = device
         kwargs: dict = {"codec": codec}
         if engine in ("torch", "cuda"):
+            self._device = resolve_device(device)
             kwargs.update(max_short_len=max_short_len, B=B,
-                          page_size=page_size,
-                          device=resolve_device(device))
+                          page_size=page_size, device=self._device)
             if engine == "torch":
                 kwargs["paged"] = paged
         self._engine_kwargs = kwargs
@@ -83,6 +93,20 @@ class QueryServer:
         self._executor = None   # planner stats are per-index
         if self._scheduler is not None:
             self._scheduler.swap(engine, self.version)
+
+    def rebuild(self, lists: Sequence[np.ndarray], *,
+                builder: str | Builder = "torch",
+                build_cfg: BuildConfig | None = None) -> RePairResult:
+        """Compress a new postings snapshot and hot-swap it in; returns the
+        new compressed result.  A builder named by string runs on the
+        server's device (the card unless the server was given
+        ``device="cpu"``); a :class:`Builder` instance runs where it was
+        made."""
+        if not isinstance(builder, Builder):
+            builder = make_builder(builder, build_cfg, device=self._device)
+        res = builder.build_grammar(lists)
+        self.swap_index(res)
+        return res
 
     # -- batched API ----------------------------------------------------------
 

@@ -18,7 +18,14 @@ installed:
 * ``CudaEngine`` on the card == ``CudaEngine`` on the CPU for probes,
   intersections (short sides longer than one probe row among them) and
   ranked top-k, with every launch counted — and the same under the codec
-  tiers ``ef``, ``bitmap`` and ``adaptive``.
+  tiers ``ef``, ``bitmap`` and ``adaptive``;
+* ``pair_count`` (K4): random streams with tables of one and of several
+  shared-memory chunks (duplicates straddling a chunk boundary),
+  sentinels, negative symbols, all-invalid, one-slot and empty streams —
+  kernel == plain version == numpy oracle;
+* ``CudaBuilder`` and ``TorchBuilder`` on the card == ``HostBuilder``,
+  with one K4 launch per round, and ``QueryServer.rebuild`` on the card
+  serving the rebuilt index exactly.
 """
 
 import numpy as np
@@ -35,7 +42,9 @@ from repro_torch.engine import CudaEngine
 from repro_torch.kernels.ef_next_geq import ops as K3
 from repro_torch.kernels.list_intersect import ops as K1
 from repro_torch.kernels.page_score import ops as K2
-from repro_torch.query import search_topk
+from repro_torch.kernels.pair_count import ops as K4
+from repro_torch.kernels.pair_count import pair_count_ref
+from repro_torch.query import naive_eval, search_topk
 
 pytestmark = pytest.mark.cuda
 INF = int(TI.INT_INF)
@@ -222,4 +231,84 @@ def test_cuda_engine_codec_on_card_matches_cpu(card, clists, cres, codec):
         np.testing.assert_array_equal(g.scores, w.scores)
     if on_card.tier.ef is not None:
         assert KR.LAUNCHES["ef_next_geq"] > n0["ef_next_geq"]
+    assert KR.LAUNCHES["page_score"] > n0["page_score"]
+
+
+@pytest.mark.parametrize("K, n, alphabet", [
+    (4096, 300_000, 90), (9000, 50_000, 5), (37, 1, 5), (128, 0, 5),
+    (600, 5000, 3)])
+def test_pair_count_kernel_matches_plain(card, K, n, alphabet):
+    """One chunk (K = 4096); three chunks whose runs of equal keys (about
+    300 copies of each of 30 keys) straddle the chunk boundaries
+    (K = 9000); tiny and empty streams; a hot alphabet; -1 sentinels."""
+    rng = np.random.default_rng(K + n)
+    seq = rng.integers(0, alphabet, n + 1).astype(np.int32)
+    seq[:3] = -1                       # negative symbols in valid slots
+    active = rng.random(n + 1) < 0.9
+    ca = rng.integers(-1, alphabet, K).astype(np.int32)
+    cb = rng.integers(0, alphabet, K).astype(np.int32)
+    args = [torch.from_numpy(a).to(card) for a in (ca, cb)]
+    stream = K4.pair_stream(torch.from_numpy(seq).to(card),
+                            torch.from_numpy(active).to(card), n + 1)
+    n0 = KR.LAUNCHES["pair_count"]
+    got = K4.pair_count(*args, *stream)
+    torch.cuda.synchronize()
+    assert KR.LAUNCHES["pair_count"] == n0 + 1
+    assert torch.equal(got, K4.pair_count_plain(*args, *stream))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), pair_count_ref(seq, active, n + 1, ca, cb))
+    none = torch.zeros_like(stream[2])             # all slots invalid
+    assert not K4.pair_count(*args, stream[0], stream[1], none).any()
+
+
+@pytest.fixture(scope="module")
+def zipf_lists():
+    from repro_torch.index.corpus import zipf_corpus
+    return zipf_corpus(num_docs=2000, vocab_size=2000, mean_doc_len=120,
+                       seed=3).postings()
+
+
+def test_builders_on_card_match_host(card, zipf_lists):
+    from repro_torch.build import make_builder
+    cfg = dict(table_cap=4096, pairs_per_round=64)
+    host = make_builder("host", **cfg).build_grammar(zipf_lists)
+    for name in ("torch", "cuda"):
+        bld = make_builder(name, device=card, **cfg)
+        n0 = KR.LAUNCHES["pair_count"]
+        res = bld.build_grammar(zipf_lists)
+        launched = KR.LAUNCHES["pair_count"] - n0
+        assert launched == (bld.stats["rounds"] if name == "cuda" else 0)
+        for a, b in ((host.grammar.rules, res.grammar.rules),
+                     (host.grammar.sums, res.grammar.sums),
+                     (host.grammar.lengths, res.grammar.lengths),
+                     (host.grammar.depths, res.grammar.depths),
+                     (host.seq, res.seq), (host.starts, res.starts)):
+            np.testing.assert_array_equal(a, b)
+    for i in range(0, len(zipf_lists), 97):
+        np.testing.assert_array_equal(res.decode_list(i), zipf_lists[i])
+
+
+def test_rebuild_on_card(card, zipf_lists, cres):
+    from repro_torch.build import BuildConfig
+    from repro_torch.serve import QueryServer
+    srv = QueryServer(cres, engine="cuda", device=card)
+    n0 = KR.LAUNCHES["pair_count"]
+    res = srv.rebuild(zipf_lists, builder="cuda",
+                      build_cfg=BuildConfig(table_cap=4096))
+    assert KR.LAUNCHES["pair_count"] > n0
+    assert srv.version == 1 and srv.engine.device == card
+    n0 = dict(KR.LAUNCHES)
+    qs = ["0 AND 1", "(2 AND 3) OR 4", "5 AND NOT 6", "7 AND 8 AND 9",
+          "1500 AND 1600", "1700 AND 3"]
+    for q, got in zip(qs, srv.search_many(qs)):
+        np.testing.assert_array_equal(
+            got, naive_eval(srv.plan(q).node, zipf_lists, res.universe))
+    lids, xs = _lanes(zipf_lists, res.universe, n=2000)
+    np.testing.assert_array_equal(srv.next_geq_batch(lids, xs),
+                                  _oracle(zipf_lists, lids, xs))
+    g = srv.search_topk([3, 1500], 10)
+    w = search_topk(CudaEngine(res, device="cpu"), [3, 1500], 10)
+    np.testing.assert_array_equal(g.docs, w.docs)
+    np.testing.assert_array_equal(g.scores, w.scores)
+    assert KR.LAUNCHES["list_intersect"] > n0["list_intersect"]
     assert KR.LAUNCHES["page_score"] > n0["page_score"]

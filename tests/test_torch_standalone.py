@@ -52,13 +52,19 @@ def test_imports_without_jax_or_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
            "PYTHONDONTWRITEBYTECODE": "1"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30       # every submodule imported
+    mods = set(out.stdout.split())
+    assert len(mods) >= 40                          # every submodule imported
+    assert {"repro_torch.build", "repro_torch.build.torch_builder",
+            "repro_torch.build.cuda_builder", "repro_torch.build.host",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.index.builder", "repro_torch.core.optimize",
+            "repro_torch.kernels.pair_count.ops"} <= mods
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -127,6 +133,30 @@ def test_codec_entry_points_raise_without_card(no_card, tiny_res):
     np.testing.assert_array_equal(
         srv.search("2 AND 3"),
         np.intersect1d(tiny_res.decode_list(2), tiny_res.decode_list(3)))
+
+
+def test_build_entry_points_raise_without_card(no_card, tiny_res):
+    """The device builders, ``QueryServer.rebuild`` with a builder named by
+    string and the launcher's ``--builder`` default to the card: without
+    one they raise before building, unless ``device="cpu"`` is passed."""
+    from repro_torch.build import CudaBuilder, TorchBuilder, make_builder
+    lists = [tiny_res.decode_list(i) for i in range(tiny_res.num_lists)]
+    for name in ("cuda", "torch"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make_builder(name, table_cap=4096)
+        with pytest.raises(RuntimeError, match="is_available"):
+            launch.serve_queries(4, engine="host", num_docs=40, vocab=60,
+                                 builder=name)
+    for cls in (CudaBuilder, TorchBuilder):
+        with pytest.raises(RuntimeError, match="is_available"):
+            cls()
+    srv = QueryServer(tiny_res, engine="host")
+    with pytest.raises(RuntimeError, match="is_available"):
+        srv.rebuild(lists)                          # torch builder, "cuda"
+    cpu = QueryServer(tiny_res, device="cpu")
+    res = cpu.rebuild(lists, builder="cuda")
+    assert cpu.version == 1
+    np.testing.assert_array_equal(res.seq, tiny_res.seq)
 
 
 def test_resolve_device_rejects_other_devices():
