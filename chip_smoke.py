@@ -8,7 +8,7 @@ exits non-zero:
 
 1. device  — the card's name, and its name and power limit from
    ``nvidia-smi``;
-2. build   — the four CUDA kernels compiled by ``nvcc`` into
+2. build   — the eight CUDA kernels compiled by ``nvcc`` into
    ``build_torch/`` (one process per source, started together), with
    ptxas reports;
 3. index   — a Zipf collection (``zipf_corpus``: 20,000 docs, vocabulary
@@ -56,18 +56,36 @@ exits non-zero:
    with the cuda builder of phase 3b (K4 once per round, the grammar of
    3b again, the index version moved), then the same 256 boolean and 64
    ranked queries served from the rebuilt index (K1 and K2 must launch),
-   every answer checked against ``naive_eval`` / ``rank_oracle``.
+   every answer checked against ``naive_eval`` / ``rank_oracle``;
+8. aux     — the entry points of K5-K8, counts zeroed just before and
+   read just after (each must launch): K6 ``gap_decode`` at the
+   reference's ``decode_bulk`` shape (16,384 x 4,096 gaps resampled from
+   the index's d-gaps) and on every list in rows of 4,096 plus a row
+   that wraps; K5 ``grammar_expand`` on every symbol of the served stream
+   of at most 32 gaps, on terminals only and at half the depth; K7
+   ``bucket_intersect`` on the first two terms of each boolean query,
+   bucketized at ``kbits`` 7 and stacked, and on random unsorted rows with
+   duplicates; K8 ``bitmap_and_count`` on a seeded pair at the repair-ir
+   universe 2^25 and on the same query pairs as bitmaps.  Every output is
+   checked against numpy (the lists decode to their postings, a sample of
+   4,096 symbols against a stack walk, ``np.intersect1d`` per pair, the
+   popcount), then each kernel is held against its plain version and
+   timed beside its bound and its library yardstick (``torch.cumsum``,
+   row-wise ``torch.searchsorted``, ``torch.bitwise_and``; none for K5).
+   Last, ``repro_torch.launch.quickstart`` runs on the card.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
-the cuda build — and times and bounds at its main launch, with every batch
-it was held on under ``shapes``), the ``nvidia-smi`` line, and
-``{"ok": true, "device": {...}}``.
+the cuda build, K5-K8 in phase 8 — and times and bounds at its main
+launch, with every batch it was held on under ``shapes``), the
+``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -88,6 +106,14 @@ TIER_MODES = ("adaptive", "ef")
 #: the device builders' [CN07] capped-counting configuration (the one the
 #: reference gives its pallas builder on real corpora)
 BUILD_TABLE_CAP = 4096
+#: phase 8: the reference's decode_bulk shape (rows, gap columns) and
+#: document universe of repair-ir (src/repro/configs/repair_ir.py:49, :35),
+#: and the bucket width of K7's layout
+DECODE_BULK = (1 << 14, 1 << 12)
+BITMAP_UNIVERSE = 1 << 25
+AUX_KBITS = 7
+AUX_KERNELS = ("grammar_expand", "gap_decode", "bucket_intersect",
+               "bitmap_and")
 
 
 def _nvidia_smi() -> str:
@@ -102,26 +128,36 @@ def _device_ms(fn, reps: int) -> tuple[float, float]:
     """Per call of ``fn``: the device time of the kernels it launched
     (``torch.profiler``'s CUDA activity, summed over all kernels) and the
     wall time between CUDA events around the calls, which also counts the
-    host's launch overhead.  Both in ms, after two warm-up calls."""
+    host's launch overhead.  Both in ms, after two warm-up calls.  A
+    profiler session that records no device time is run once more; if it
+    is empty again, the CUDA events give both numbers, and a line says
+    so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages())
-    if dev_us <= 0:
-        raise SystemExit("torch.profiler recorded no device time")
-    return dev_us / reps / 1e3, start.elapsed_time(stop) / reps
+    for attempt in (1, 2):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(reps):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
+        wall = start.elapsed_time(stop) / reps
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in prof.key_averages())
+        if dev_us > 0:
+            return dev_us / reps / 1e3, wall
+        print(f"[timing] torch.profiler recorded no device time (session "
+              f"{attempt} of 2, {len(prof.events())} events: "
+              f"{sorted({e.key[:40] for e in prof.key_averages()})})")
+    print(f"[timing] CUDA events give this call's device time: "
+          f"{wall:.5f} ms")
+    return wall, wall
 
 
 def _profile(fn) -> dict:
@@ -724,23 +760,27 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
                 lat_rank=lat[n_lat:], stats=srv.serve_stats())
 
 
-def _hold(name, kernel, plain, args, kw, traffic) -> tuple:
+def _hold(name, kernel, plain, args, kw, traffic, timing_args=None) -> tuple:
     """Run ``kernel`` and its plain version on the same card tensors; the
     outputs must be equal.  Returns the kernel's output and its numbers:
     device ms of both (kernel over 100 calls, plain over 3), per-call ms,
-    and the bound from ``traffic()`` = (bytes, operations)."""
+    and the bound from ``traffic()`` = (bytes, operations).  An iterator
+    ``timing_args`` gives each timed call its own arguments (copies of
+    ``args`` that keep the inputs out of L2)."""
     import torch
     out_k = kernel(*args, **kw)
     out_p = plain(*args, **kw)
     torch.cuda.synchronize()
-    bad = int((out_k != out_p).sum())
+    k, p = _as_int(out_k), _as_int(out_p)
+    bad = int((k != p).sum())
     if bad:
         raise SystemExit(f"[kernels] {name} disagrees with its plain "
                          f"version in {bad} slots")
-    err = int((out_k.long() - out_p.long()).abs().max()) \
-        if out_k.numel() else 0
-    ms, wall = _device_ms(lambda: kernel(*args, **kw), 100)
-    plain_ms, plain_wall = _device_ms(lambda: plain(*args, **kw), 3)
+    err = int((k - p).abs().max()) if k.numel() else 0
+    nxt = (lambda: args) if timing_args is None else \
+        (lambda: next(timing_args))
+    ms, wall = _device_ms(lambda: kernel(*nxt(), **kw), 100)
+    plain_ms, plain_wall = _device_ms(lambda: plain(*nxt(), **kw), 3)
     bound, by = _bound(*traffic())
     return out_k, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, call_ms=wall,
@@ -755,18 +795,361 @@ def _print_hold(name: str, row: dict, unit: str, against: str) -> None:
           f"{row['plain_call_ms']:.3f} ms)")
 
 
-def _kernel_row(name, source, replaces, launches, serve, other) -> dict:
+def _kernel_row(name, source, replaces, launches, main, *others) -> dict:
     """One entry of the ``kernels`` line: the top-level numbers are those
-    of the kernel's largest serve launch, where its time counts (with its
-    library yardstick's time there, if it has one); every batch it was
-    held on is under ``shapes``."""
+    of the kernel's main launch (K1-K3: its largest serve launch; K4:
+    round 1 of the cuda build; K5-K8: the full-size launch of phase 8),
+    with its library yardstick's time there, if it has one; every batch
+    it was held on is under ``shapes``."""
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches[name],
-        max_abs_err=max(serve["max_abs_err"], other["max_abs_err"]),
-        ms=serve["ms"], plain_ms=serve["plain_ms"],
-        bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
-        library_ms=serve.get("library_ms"), shapes=[serve, other])
+        max_abs_err=max(r["max_abs_err"] for r in (main, *others)),
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main.get("library_ms"), shapes=[main, *others])
+
+
+def _as_int(out):
+    """A kernel's output as one int64 tensor, for comparison: a tuple is
+    flattened, uint32 words are read as int32 (the same bits)."""
+    import torch
+    parts = out if isinstance(out, tuple) else (out,)
+    return torch.cat([(p.view(torch.int32) if p.dtype == torch.uint32
+                       else p).reshape(-1).long() for p in parts])
+
+
+def k5_traffic(syms, tables, max_depth) -> tuple[float, float]:
+    """Bytes and int32 operations one K5 launch needs on these symbols,
+    replaying the descents with the kernel's early exit (a lane stops on
+    a terminal): each symbol read once, the (W, 32) output written once,
+    16 bytes (four tables) for each distinct node a descent visits; 4
+    operations per slot and 6 per descent step."""
+    import torch
+    left, right, lens = (tables[k] for k in ("sym_left", "sym_right",
+                                             "sym_len"))
+    sym = syms.long().repeat_interleave(32)
+    want = torch.arange(1, 33, device=syms.device).repeat(syms.numel())
+    visited, steps = [torch.unique(sym)], 0
+    for _ in range(max_depth):
+        l = left[sym].long()
+        rule = l >= 0
+        if not bool(rule.any()):
+            break
+        steps += int(rule.sum())
+        ll = lens[l.clamp(min=0)].long()
+        go_left = want <= ll
+        sym = torch.where(rule, torch.where(go_left, l, right[sym].long()),
+                          sym)
+        want = torch.where(rule & ~go_left, want - ll, want)
+        visited.append(torch.unique(sym[rule]))
+    nodes = int(torch.unique(torch.cat(visited)).numel())
+    w = syms.numel()
+    return float(4 * w + 128 * w + 16 * nodes), float(4 * 32 * w + 6 * steps)
+
+
+def k7_traffic(a, b) -> tuple[float, float]:
+    """Bytes and int32 operations one K7 launch needs: a and b read and
+    the output written once; each live element of a compared with its
+    row of b up to its first match (all of the row if none), and one
+    select per slot.  The compares are counted in row chunks."""
+    import torch
+    inf = 2**31 - 1
+    nb, cap = a.shape
+    step = max(1, (1 << 24) // (cap * cap))
+    ops = a.numel()
+    for r in range(0, nb, step):
+        x, y = a[r:r + step], b[r:r + step]
+        eq = x[:, :, None] == y[:, None, :]
+        scanned = torch.where(eq.any(2), eq.int().argmax(2) + 1, cap)
+        ops += int(scanned[x != inf].sum())
+    return float(12 * a.numel()), float(ops)
+
+
+def _k6_rows(lists, C: int):
+    """Every posting list cut into rows of ``C`` d-gaps: row k of a list
+    starts from the list's element k * C (the previous row's last decoded
+    value) and decodes to the next ``C`` elements; a short row is padded
+    with zero gaps.  Returns gaps, firsts, and per row its list and how
+    many of its slots are real."""
+    import numpy as np
+    owner, take = [], []
+    for i, l in enumerate(lists):
+        n = len(l) - 1
+        k = max(1, -(-n // C))
+        owner += [i] * k
+        take += [min(C, n - j * C) for j in range(k)]
+    gaps = np.zeros((len(owner), C), np.int32)
+    firsts = np.empty(len(owner), np.int32)
+    r = 0
+    for l in lists:
+        d = np.diff(np.asarray(l, np.int64)).astype(np.int32)
+        for j in range(max(1, -(-d.size // C))):
+            seg = d[j * C:(j + 1) * C]
+            gaps[r, :seg.size] = seg
+            firsts[r] = l[j * C]
+            r += 1
+    return gaps, firsts, np.asarray(owner), np.asarray(take)
+
+
+def _k7_pairs(queries, lists, universe):
+    """The first two distinct terms (in AST order) of each boolean query
+    with two or more, each list bucketized at ``AUX_KBITS`` over the
+    index's universe; returns the pairs and the stacked (NB, 128) rows of
+    their a and b sides."""
+    import numpy as np
+    from repro_torch.kernels.bucket_intersect import bucketize
+    from repro_torch.query.ast import terms_of
+    pairs = []
+    for q in queries:
+        ts = list(dict.fromkeys(terms_of(q)))
+        if len(ts) >= 2:
+            pairs.append((ts[0], ts[1]))
+    a = np.concatenate([bucketize(lists[s], universe, AUX_KBITS, 128)
+                        for s, _ in pairs])
+    b = np.concatenate([bucketize(lists[t], universe, AUX_KBITS, 128)
+                        for _, t in pairs])
+    return pairs, a, b
+
+
+def _searchsorted_intersect(a, b):
+    """The library yardstick of K7 on bucketized (sorted) rows: one
+    row-wise ``torch.searchsorted`` of a into b, a gather and a compare.
+    Timed beside the kernel, used nowhere in the port."""
+    import torch
+    inf = 2**31 - 1
+    pos = torch.searchsorted(b, a).clamp(max=b.shape[1] - 1)
+    hit = (torch.gather(b, 1, pos) == a) & (a != inf)
+    return torch.where(hit, a, inf)
+
+
+def _aux(lists, res, fi, queries, seed: int) -> dict:
+    """Phase 8: the entry points of K5-K8 on the card, at full size and on
+    the served index's own data.  Launch counts are zeroed just before
+    the entry points run and read just after; then every output is checked
+    against its numpy oracle, and each kernel is held against its plain
+    version and timed.  Returns the launches and the rows of each kernel."""
+    import itertools
+    import numpy as np
+    import torch
+    from repro_torch import kernels as KR
+    from repro_torch.core.bitmaps import build_bitmap
+    from repro_torch.kernels.bitmap_and import ops as K8
+    from repro_torch.kernels.bucket_intersect import ops as K7
+    from repro_torch.kernels.gap_decode import ops as K6
+    from repro_torch.kernels.grammar_expand import ops as K5
+    rng = np.random.default_rng(seed)
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    inf = 2**31 - 1
+
+    # inputs: K6 at decode_bulk resampled from the real d-gaps and heads,
+    # and every list in rows of 4,096 plus a row that wraps
+    R, C = DECODE_BULK
+    real_gaps = np.concatenate([np.diff(np.asarray(l, np.int64))
+                                for l in lists]).astype(np.int32)
+    heads = np.asarray([l[0] for l in lists], np.int32)
+    g6 = cuda(real_gaps[rng.integers(0, real_gaps.size, (R, C))])
+    f6 = cuda(heads[rng.integers(0, heads.size, R)])
+    rows_g, rows_f, owner, take = _k6_rows(lists, C)
+    wrap_g = np.full((1, C), 7, np.int32)
+    rows_g = np.concatenate([rows_g, wrap_g])
+    rows_f = np.append(rows_f, np.int32(inf - 100))
+    e6 = (cuda(rows_g), cuda(rows_f))
+    # K5: every symbol of the served stream of at most PHRASE_CAP gaps;
+    # terminals only (W = 1,037); the same symbols at half the depth
+    tabs = [fi.sym_left, fi.sym_right, fi.sym_sum, fi.sym_len]
+    syms5 = fi.c[fi.sym_len[fi.c.long()] <= K5.PHRASE_CAP].contiguous()
+    terms5 = cuda(rng.integers(0, fi.num_terminals, 1037).astype(np.int32))
+    cut5 = syms5[:100_003].contiguous()
+    # K7: the boolean queries' first two terms, bucketized; random rows
+    pairs, a7_np, b7_np = _k7_pairs(queries, lists, res.universe)
+    a7, b7 = cuda(a7_np), cuda(b7_np)
+    ea7_np = rng.integers(0, 500, (1037, 1500)).astype(np.int32)
+    eb7_np = rng.integers(0, 500, (1037, 1500)).astype(np.int32)
+    ea7_np[rng.random(ea7_np.shape) < 0.1] = inf
+    eb7_np[rng.random(eb7_np.shape) < 0.1] = inf
+    e7 = (cuda(ea7_np), cuda(eb7_np))
+    # K8: one seeded pair at the repair-ir universe; the same pairs as K7
+    # as bitmaps of the index's universe, stacked
+    n8 = BITMAP_UNIVERSE // 32
+    a8_np = rng.integers(0, 2**32, n8, dtype=np.uint32)
+    b8_np = rng.integers(0, 2**32, n8, dtype=np.uint32)
+    a8, b8 = cuda(a8_np), cuda(b8_np)
+    bm = lambda t: build_bitmap(lists[t], res.universe).words.view(np.uint32)
+    ea8_np = np.concatenate([bm(s) for s, _ in pairs])
+    eb8_np = np.concatenate([bm(t) for _, t in pairs])
+    e8 = (cuda(ea8_np), cuda(eb8_np))
+    torch.cuda.synchronize()
+
+    # the path: each entry point at full size and on its second batch
+    KR.reset_launches()
+    t0 = time.perf_counter()
+    out6 = K6.gap_decode(g6, f6)
+    out6e = K6.gap_decode(*e6)
+    out5 = K5.grammar_expand(syms5, *tabs, max_depth=fi.max_depth)
+    out5t = K5.grammar_expand(terms5, *tabs, max_depth=fi.max_depth)
+    K5.grammar_expand(cut5, *tabs, max_depth=fi.max_depth // 2)  # held below
+    out7 = K7.bucket_intersect(a7, b7)
+    out7e = K7.bucket_intersect(*e7)
+    out8, cnt8 = K8.bitmap_and_count(a8, b8)
+    out8e, cnt8e = K8.bitmap_and_count(*e8)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    launches = dict(KR.LAUNCHES)
+    for name in AUX_KERNELS:
+        if launches[name] == 0:
+            raise SystemExit(f"[aux] {name} never launched: {launches}")
+
+    # oracles
+    dec = out6e.cpu().numpy()
+    n_rows = owner.size
+    body = dec[:n_rows][np.arange(C) < take[:, None]]
+    cont = np.nonzero(owner[1:] == owner[:-1])[0] + 1
+    if not (np.array_equal(body, np.concatenate(
+            [np.asarray(l[1:], np.int64) for l in lists]))
+            and np.array_equal(rows_f[cont], dec[cont - 1, C - 1])):
+        raise SystemExit("[aux] gap_decode: the lists' rows do not decode "
+                         "to their postings")
+    want = (np.cumsum(wrap_g.astype(np.int64), 1) + (inf - 100)
+            ).astype(np.uint32).view(np.int32)
+    if not np.array_equal(dec[-1:], want):
+        raise SystemExit("[aux] gap_decode: the wrapping row differs")
+    left, right, sums = (t.cpu().numpy() for t in tabs[:3])
+    rows5 = out5.cpu().numpy()
+    syms_np = syms5.cpu().numpy()
+    for w in rng.choice(syms_np.size, min(4096, syms_np.size),
+                        replace=False):
+        stack, want = [int(syms_np[w])], []
+        while stack:
+            t = stack.pop()
+            if left[t] < 0:
+                want.append(int(sums[t]))
+            else:
+                stack += [int(right[t]), int(left[t])]
+        if rows5[w, :len(want)].tolist() != want \
+                or rows5[w, len(want):].any():
+            raise SystemExit(f"[aux] grammar_expand: symbol "
+                             f"{syms_np[w]} differs from its expansion")
+    t5 = out5t.cpu().numpy()
+    if not (np.array_equal(t5[:, 0], sums[terms5.cpu().numpy()])
+            and not t5[:, 1:].any()):
+        raise SystemExit("[aux] grammar_expand: a terminal row differs")
+    o7 = out7.cpu().numpy()
+    nb = o7.shape[0] // len(pairs)
+    for k, (s, t) in enumerate(pairs):
+        if not np.array_equal(
+                K7.unbucketize(o7[k * nb:(k + 1) * nb]),
+                np.intersect1d(lists[s], lists[t])):
+            raise SystemExit(f"[aux] bucket_intersect: pair {(s, t)} "
+                             f"differs from np.intersect1d")
+    o7e = out7e.cpu().numpy()
+    for r in range(o7e.shape[0]):
+        hit = (ea7_np[r] != inf) & np.isin(ea7_np[r], eb7_np[r])
+        if not np.array_equal(o7e[r], np.where(hit, ea7_np[r], inf)):
+            raise SystemExit(f"[aux] bucket_intersect: random row {r} "
+                             f"differs from numpy")
+    popc = lambda w: int(np.unpackbits(w.view(np.uint8)).sum())
+    if not (np.array_equal(out8.cpu().numpy(), a8_np & b8_np)
+            and int(cnt8) == popc(a8_np & b8_np)):
+        raise SystemExit("[aux] bitmap_and_count differs from numpy at "
+                         "2^25")
+    o8e = out8e.cpu().numpy()
+    nw = o8e.size // len(pairs)
+    total = 0
+    for k, (s, t) in enumerate(pairs):
+        bits = np.unpackbits(o8e[k * nw:(k + 1) * nw].view(np.uint8),
+                             bitorder="little")
+        inter = np.intersect1d(lists[s], lists[t])
+        total += inter.size
+        if not np.array_equal(np.nonzero(bits)[0], inter):
+            raise SystemExit(f"[aux] bitmap_and: pair {(s, t)} differs "
+                             f"from np.intersect1d")
+    if int(cnt8e) != total or total != popc(o8e):
+        raise SystemExit("[aux] bitmap_and_count: the pairs' total differs")
+
+    aux_launches = {k: launches[k] for k in AUX_KERNELS}
+    print(f"[aux] entry points of K5-K8 on the card in {t_path:.3f} s "
+          f"(inputs made before, checks and timing after), launches "
+          f"{aux_launches}; every output equal its numpy oracle: "
+          f"gap_decode's rows decode to the postings, "
+          f"grammar_expand's sample equals the stack walk, "
+          f"bucket_intersect and bitmap_and equal np.intersect1d on "
+          f"{len(pairs)} query pairs, bitmap_and_count equals numpy's "
+          f"popcount")
+
+    # each kernel held against its plain version and timed
+    def hold(name, kernel, plain, args, kw, traffic, batch, size, **extra):
+        _, row = _hold(name, kernel, plain, args, kw, traffic, **extra)
+        row = dict(batch=batch, size=size, **row)
+        _print_hold(name, row, "elements", "plain")
+        return row
+
+    tables5 = dict(sym_left=fi.sym_left, sym_right=fi.sym_right,
+                   sym_len=fi.sym_len)
+    md = fi.max_depth
+    k6 = [hold("gap_decode", K6.gap_decode, K6.gap_decode_plain, (g6, f6),
+               {}, lambda: (8.0 * R * C + 4 * R, float(R * C)),
+               f"decode_bulk {R} x {C}, gaps resampled from the index",
+               R * C),
+          hold("gap_decode", K6.gap_decode, K6.gap_decode_plain, e6, {},
+               lambda: (8.0 * rows_g.size + 4 * rows_f.size,
+                        float(rows_g.size)),
+               f"every list in rows of {C} ({rows_f.size - 1} rows) plus a "
+               f"wrapping row", int(rows_g.size))]
+    lib6 = lambda: torch.cumsum(g6, 1, dtype=torch.int32) + f6[:, None]
+    if not torch.equal(lib6(), out6):
+        raise SystemExit("[aux] the cumsum yardstick disagrees with "
+                         "gap_decode")
+    k6[0]["library_ms"] = _device_ms(lib6, 20)[0]
+    k5 = [hold("grammar_expand", K5.grammar_expand, K5.grammar_expand_plain,
+               (syms5, *tabs), dict(max_depth=md),
+               lambda: k5_traffic(syms5, tables5, md),
+               f"served stream symbols of <= {K5.PHRASE_CAP} gaps, "
+               f"max_depth {md}", int(syms5.numel())),
+          hold("grammar_expand", K5.grammar_expand, K5.grammar_expand_plain,
+               (terms5, *tabs), dict(max_depth=md),
+               lambda: k5_traffic(terms5, tables5, md),
+               "terminals only", int(terms5.numel())),
+          hold("grammar_expand", K5.grammar_expand, K5.grammar_expand_plain,
+               (cut5, *tabs), dict(max_depth=md // 2),
+               lambda: k5_traffic(cut5, tables5, md // 2),
+               f"max_depth cut to {md // 2}", int(cut5.numel()))]
+    k7 = [hold("bucket_intersect", K7.bucket_intersect,
+               K7.bucket_intersect_plain, (a7, b7), {},
+               lambda: k7_traffic(a7, b7),
+               f"{len(pairs)} query pairs bucketized at kbits "
+               f"{AUX_KBITS}, {a7.shape[0]} x {a7.shape[1]}",
+               int(a7.numel())),
+          hold("bucket_intersect", K7.bucket_intersect,
+               K7.bucket_intersect_plain, e7, {},
+               lambda: k7_traffic(*e7),
+               "random unsorted rows with duplicates and INT_INF, "
+               f"{e7[0].shape[0]} x {e7[0].shape[1]}", int(e7[0].numel()))]
+    if not torch.equal(_searchsorted_intersect(a7, b7), out7):
+        raise SystemExit("[aux] the searchsorted yardstick disagrees with "
+                         "bucket_intersect")
+    k7[0]["library_ms"] = _device_ms(
+        lambda: _searchsorted_intersect(a7, b7), 100)[0]
+    # K8 fits in L2: time it over eight copies of its operands in turn,
+    # so that each launch finds its inputs cold, as a caller would
+    cold = itertools.cycle([(a8.clone(), b8.clone()) for _ in range(8)])
+    k8 = [hold("bitmap_and", K8.bitmap_and_count, K8.bitmap_and_count_plain,
+               (a8, b8), {}, lambda: (12.0 * n8 + 4, 3.0 * n8),
+               f"one seeded pair at universe {BITMAP_UNIVERSE} ({n8} words)",
+               n8,
+               timing_args=cold),
+          hold("bitmap_and", K8.bitmap_and_count, K8.bitmap_and_count_plain,
+               e8, {}, lambda: (12.0 * e8[0].numel() + 4,
+                                3.0 * e8[0].numel()),
+               f"{len(pairs)} query pairs as bitmaps of universe "
+               f"{res.universe}, stacked", int(e8[0].numel()))]
+    # the AND alone (PyTorch has no popcount), on int32 views of the same
+    # cold copies
+    k8[0]["library_ms"] = _device_ms(lambda: torch.bitwise_and(
+        *(t.view(torch.int32) for t in next(cold))), 100)[0]
+    return dict(launches=launches,
+                rows=dict(grammar_expand=k5, gap_decode=k6,
+                          bucket_intersect=k7, bitmap_and=k8))
 
 
 def main() -> int:
@@ -790,6 +1173,7 @@ def main() -> int:
     from repro_torch.kernels.page_score import ops as K2
     from repro_torch.kernels.pair_count import ops as K4
     from repro_torch.kernels.pair_count import pair_count_ref
+    from repro_torch.launch import quickstart
     from repro_torch.launch.serve import (boolean_workload, build_corpus,
                                           ranked_workload)
     from repro_torch.serve import QueryServer
@@ -1127,6 +1511,32 @@ def main() -> int:
           f"{len(bags)} ranked at {len(bags) / run['t_rank']:.1f} q/s, "
           f"launches {run['launches']}; all answers equal naive_eval / "
           f"rank_oracle")
+
+    # 8. aux: K5-K8 through their entry points, then the quickstart flow
+    aux = _aux(lists, res, eng.fi, queries, args.seed)
+    print("[aux] library yardsticks at the main launches: " + "; ".join(
+        f"{name} {rows[0]['library_ms']:.5f} ms" for name, rows in
+        aux["rows"].items() if rows[0].get("library_ms") is not None))
+    sources = {"grammar_expand": "grammar_expand.py:70",
+               "gap_decode": "gap_decode.py:39",
+               "bucket_intersect": "bucket_intersect.py:34",
+               "bitmap_and": "bitmap_and.py:36"}
+    for name, rows in aux["rows"].items():
+        report.append(_kernel_row(
+            name, f"src/repro_torch/csrc/{name}.cu",
+            f"src/repro/kernels/{name}/{sources[name]}", aux["launches"],
+            *rows))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        quickstart.main(device="cuda")
+    out = buf.getvalue().splitlines()
+    if out[-1] != "quickstart OK":
+        raise SystemExit("[aux] the quickstart flow did not finish")
+    print(f"[aux] repro_torch.launch.quickstart on the card in "
+          f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
+              line for line in out if line.startswith(
+                  ("torch builder", "12 bigram", "  lookup"))))
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

@@ -1,4 +1,12 @@
-from .corpus import SyntheticCorpus, zipf_corpus
+from .corpus import SyntheticCorpus, zipf_corpus, pack_documents
 from .builder import InvertedIndex, build_index
+from .hybrid import HybridQueryEngine
 
-__all__ = ["SyntheticCorpus", "zipf_corpus", "InvertedIndex", "build_index"]
+__all__ = [
+    "SyntheticCorpus",
+    "zipf_corpus",
+    "pack_documents",
+    "InvertedIndex",
+    "build_index",
+    "HybridQueryEngine",
+]

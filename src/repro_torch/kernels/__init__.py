@@ -9,6 +9,14 @@
 * ``pair_count`` (K4) — the pair histogram of device Re-Pair
   construction: each pair slot binary-searches a sorted candidate table in
   shared memory, one thread per slot.
+* ``grammar_expand`` (K5) — positional phrase expansion: one thread per
+  output slot descends the grammar, one warp per symbol's row.
+* ``gap_decode`` (K6) — row-wise d-gap decode: one warp per row scans it
+  chunk by chunk, the carry in a register.
+* ``bucket_intersect`` (K7) — domain-bucketed intersection: each thread
+  holds one element of ``a`` against its row of ``b`` in shared memory.
+* ``bitmap_and`` (K8) — word-wise AND of two bitmaps and the popcount of
+  the result, a grid-stride loop with one atomic add per block.
 
 Each kernel is CUDA C++ for ``sm_90a`` under ``repro_torch/csrc/``, built
 on first use by ``nvcc`` into a shared library with a plain C interface
@@ -33,7 +41,8 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("list_intersect", "page_score", "ef_next_geq", "pair_count")
+KERNELS = ("list_intersect", "page_score", "ef_next_geq", "pair_count",
+           "grammar_expand", "gap_decode", "bucket_intersect", "bitmap_and")
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,13 +133,15 @@ def load_kernel(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_operands(name: str, device: torch.device, **tensors) -> None:
-    """Raise unless every tensor is contiguous int32 on ``device``."""
+def check_operands(name: str, device: torch.device,
+                   dtype: torch.dtype = torch.int32, **tensors) -> None:
+    """Raise unless every tensor is contiguous, of ``dtype`` (int32 unless
+    given) and on ``device``."""
     for key, t in tensors.items():
-        if t.device != device or t.dtype != torch.int32 \
-                or not t.is_contiguous():
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
-                f"{name}: {key} must be a contiguous int32 tensor on "
+                f"{name}: {key} must be a contiguous "
+                f"{str(dtype).removeprefix('torch.')} tensor on "
                 f"{device}, got {t.dtype} on {t.device}"
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 

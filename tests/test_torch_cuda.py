@@ -25,7 +25,17 @@ installed:
   kernel == plain version == numpy oracle;
 * ``CudaBuilder`` and ``TorchBuilder`` on the card == ``HostBuilder``,
   with one K4 launch per round, and ``QueryServer.rebuild`` on the card
-  serving the rebuilt index exactly.
+  serving the rebuilt index exactly;
+* ``gap_decode`` (K6): aligned and unaligned rows, ``firsts`` as (R,) and
+  (R, 1), sums that wrap — kernel == plain version == numpy;
+* ``bitmap_and`` (K8): sizes with and without a scalar tail, unaligned
+  operands, all-ones words — AND and total == plain version == numpy;
+* ``bucket_intersect`` (K7): unsorted rows with duplicates and interior
+  ``INT_INF``, a CAP staged in two chunks, bucketized lists — kernel ==
+  plain version == set oracle;
+* ``grammar_expand`` (K5): every symbol of a real grammar at full and cut
+  ``max_depth``, terminals only, padded ids — kernel == plain version ==
+  the host stack walk.
 """
 
 import numpy as np
@@ -39,7 +49,11 @@ from repro_torch.core import ef as EF
 from repro_torch.core import index as TI
 from repro_torch.core.repair import repair_compress
 from repro_torch.engine import CudaEngine
+from repro_torch.kernels.bitmap_and import ops as K8
+from repro_torch.kernels.bucket_intersect import ops as K7
 from repro_torch.kernels.ef_next_geq import ops as K3
+from repro_torch.kernels.gap_decode import ops as K6
+from repro_torch.kernels.grammar_expand import ops as K5
 from repro_torch.kernels.list_intersect import ops as K1
 from repro_torch.kernels.page_score import ops as K2
 from repro_torch.kernels.pair_count import ops as K4
@@ -312,3 +326,131 @@ def test_rebuild_on_card(card, zipf_lists, cres):
     np.testing.assert_array_equal(g.scores, w.scores)
     assert KR.LAUNCHES["list_intersect"] > n0["list_intersect"]
     assert KR.LAUNCHES["page_score"] > n0["page_score"]
+
+
+def _counted(name, fn, *args, **kw):
+    """Run a wrapper on card tensors; it must launch its kernel once."""
+    n0 = KR.LAUNCHES[name]
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert KR.LAUNCHES[name] == n0 + 1
+    return out
+
+
+@pytest.mark.parametrize("R, C", [(1, 7), (3, 130), (5, 701), (64, 4096),
+                                  (300, 4097)])
+@pytest.mark.parametrize("firsts_2d", [False, True])
+def test_gap_decode_kernel_matches_plain(card, R, C, firsts_2d):
+    """Rows of C % 4 != 0 alternate between the vector and the scalar
+    path; row 1 wraps past 2**31 - 1."""
+    rng = np.random.default_rng(R * C)
+    gaps = rng.integers(0, 3000, (R, C)).astype(np.int32)
+    firsts = rng.integers(0, 1000, R).astype(np.int32)
+    if R > 1:
+        gaps[1] = rng.integers(2**28, 2**30, C)
+    if firsts_2d:
+        firsts = firsts[:, None].copy()
+    g, f = (torch.from_numpy(a).to(card) for a in (gaps, firsts))
+    got = _counted("gap_decode", K6.gap_decode, g, f)
+    assert torch.equal(got, K6.gap_decode_plain(g, f))
+    want = (np.cumsum(gaps.astype(np.int64), 1) + firsts.reshape(-1, 1)
+            ).astype(np.uint32).view(np.int32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("n, offset", [(1, 0), (3, 0), (4, 0), (5000, 0),
+                                       (1 << 20, 0), ((1 << 20) + 3, 1)])
+def test_bitmap_and_kernel_matches_plain(card, n, offset):
+    """``offset`` 1 starts both operands 4 bytes into their buffers: the
+    kernel must take its scalar path."""
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, 2**32, n + offset, dtype=np.uint32)
+    b = rng.integers(0, 2**32, n + offset, dtype=np.uint32)
+    a[offset:offset + 64] = 0xFFFFFFFF
+    ta, tb = (torch.from_numpy(x).to(card)[offset:] for x in (a, b))
+    a, b = a[offset:], b[offset:]
+    w = _counted("bitmap_and", K8.bitmap_and, ta, tb)
+    w2, total = _counted("bitmap_and", K8.bitmap_and_count, ta, tb)
+    pw, ptotal = K8.bitmap_and_count_plain(ta, tb)
+    for x in (w, w2, pw):
+        assert x.dtype == torch.uint32
+        np.testing.assert_array_equal(x.cpu().numpy(), a & b)
+    assert total.dtype == torch.int32 and total.shape == ()
+    assert int(total) == int(ptotal) == int(
+        np.unpackbits((a & b).view(np.uint8)).sum())
+
+
+@pytest.mark.parametrize("nb, cap", [(5, 37), (3, 1500), (9, 130), (1, 1)])
+def test_bucket_intersect_kernel_matches_plain(card, nb, cap):
+    rng = np.random.default_rng(nb * cap)
+    hi = max(4, cap // 3)
+    a = rng.integers(0, hi, (nb, cap)).astype(np.int32)
+    b = rng.integers(0, hi, (nb, cap)).astype(np.int32)
+    a[rng.random((nb, cap)) < 0.1] = INF
+    b[rng.random((nb, cap)) < 0.1] = INF
+    ta, tb = (torch.from_numpy(x).to(card) for x in (a, b))
+    got = _counted("bucket_intersect", K7.bucket_intersect, ta, tb)
+    assert torch.equal(got, K7.bucket_intersect_plain(ta, tb))
+    for r in range(nb):
+        hit = (a[r] != INF) & np.isin(a[r], b[r])
+        np.testing.assert_array_equal(got[r].cpu().numpy(),
+                                      np.where(hit, a[r], INF))
+
+
+def test_bucket_intersect_kernel_bucketized_lists(card):
+    rng = np.random.default_rng(17)
+    u = 20000
+    x = np.sort(rng.choice(u, 4000, replace=False))
+    y = np.sort(rng.choice(u, 6000, replace=False))
+    ta, tb = (torch.from_numpy(K7.bucketize(v, u, 7, 128)).to(card)
+              for v in (x, y))
+    got = _counted("bucket_intersect", K7.bucket_intersect, ta, tb)
+    assert torch.equal(got, K7.bucket_intersect_plain(ta, tb))
+    np.testing.assert_array_equal(K7.unbucketize(got.cpu().numpy()),
+                                  np.intersect1d(x, y))
+
+
+def _stack_walk(s, left, right, sums):
+    stack, out = [int(s)], []
+    while stack:
+        t = stack.pop()
+        if left[t] < 0:
+            out.append(int(sums[t]))
+        else:
+            stack += [int(right[t]), int(left[t])]
+    return out
+
+
+@pytest.mark.parametrize("cut", [None, 0, 1, "half"])
+def test_grammar_expand_kernel_matches_plain(card, cres, cut):
+    fi = TI.build_flat_index(cres, device=card)
+    tabs = [fi.sym_left, fi.sym_right, fi.sym_sum, fi.sym_len]
+    depth = {None: fi.max_depth, "half": fi.max_depth // 2}.get(cut, cut)
+    S = int(fi.sym_len.numel())
+    syms = torch.cat([torch.arange(S, dtype=torch.int32, device=card),
+                      torch.tensor([S, S + 5, -1], dtype=torch.int32,
+                                   device=card)])
+    got = _counted("grammar_expand", K5.grammar_expand, syms, *tabs,
+                   max_depth=depth)
+    assert torch.equal(got, K5.grammar_expand_plain(syms, *tabs,
+                                                    max_depth=depth))
+    assert not got[S:].any()                    # padded ids: zero rows
+    if cut is None:
+        left, right, sums, lens = (t.cpu().numpy() for t in tabs)
+        rows = got.cpu().numpy()
+        for s in np.nonzero(lens <= K5.PHRASE_CAP)[0][::7]:
+            want = _stack_walk(s, left, right, sums)
+            np.testing.assert_array_equal(rows[s, :len(want)], want)
+            assert not rows[s, len(want):].any()
+
+
+def test_grammar_expand_kernel_terminals_only(card):
+    S, W = 1000, 1037
+    tabs = [torch.full((S,), -1, dtype=torch.int32, device=card),
+            torch.full((S,), -1, dtype=torch.int32, device=card),
+            torch.arange(S, dtype=torch.int32, device=card) * 3,
+            torch.ones(S, dtype=torch.int32, device=card)]
+    syms = torch.randint(0, S, (W,), dtype=torch.int32, device=card)
+    got = _counted("grammar_expand", K5.grammar_expand, syms, *tabs,
+                   max_depth=4)
+    assert torch.equal(got[:, 0], syms * 3) and not got[:, 1:].any()

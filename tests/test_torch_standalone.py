@@ -22,8 +22,13 @@ import repro_torch
 from repro_torch import kernels as KR
 from repro_torch.core.repair import repair_compress
 from repro_torch.engine import make_engine
+from repro_torch.kernels.bitmap_and import ops as K8
+from repro_torch.kernels.bucket_intersect import ops as K7
+from repro_torch.kernels.gap_decode import ops as K6
+from repro_torch.kernels.grammar_expand import ops as K5
 from repro_torch.kernels.list_intersect import ops as K1
 from repro_torch.kernels.page_score import ops as K2
+from repro_torch.launch import quickstart
 from repro_torch.launch import serve as launch
 from repro_torch.serve import QueryServer
 
@@ -64,7 +69,13 @@ def test_imports_without_jax_or_repro():
             "repro_torch.build.cuda_builder", "repro_torch.build.host",
             "repro_torch.data", "repro_torch.data.pipeline",
             "repro_torch.index.builder", "repro_torch.core.optimize",
-            "repro_torch.kernels.pair_count.ops"} <= mods
+            "repro_torch.kernels.pair_count.ops",
+            "repro_torch.kernels.grammar_expand.ops",
+            "repro_torch.kernels.gap_decode.ops",
+            "repro_torch.kernels.bucket_intersect.ops",
+            "repro_torch.kernels.bitmap_and.ops", "repro_torch.index.hybrid",
+            "repro_torch.index.positional",
+            "repro_torch.launch.quickstart"} <= mods
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -179,6 +190,25 @@ def test_wrappers_refuse_other_devices(tiny_res):
     ents = [torch.zeros(4, dtype=torch.int32, device=meta)] * 6
     with pytest.raises(ValueError, match="unsupported device"):
         K2.page_score(*ents, tables2, b_pad=128, **statics2)
+    i32 = [torch.zeros(8, dtype=torch.int32, device=meta)] * 5
+    with pytest.raises(ValueError, match="unsupported device"):
+        K5.grammar_expand(*i32, max_depth=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K6.gap_decode(torch.zeros((2, 4), dtype=torch.int32, device=meta),
+                      i32[0][:2])
+    with pytest.raises(ValueError, match="unsupported device"):
+        K7.bucket_intersect(*[torch.zeros((2, 4), dtype=torch.int32,
+                                          device=meta)] * 2)
+    words = torch.zeros(8, dtype=torch.uint32, device=meta)
+    for fn in (K8.bitmap_and, K8.bitmap_and_count):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(words, words)
+
+
+def test_quickstart_raises_without_card(no_card):
+    """The quickstart flow runs on the card unless asked otherwise."""
+    with pytest.raises(RuntimeError, match="is_available"):
+        quickstart.main()
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
