@@ -23,7 +23,8 @@ exits non-zero:
    capped-counting configuration ``table_cap=4096``, 64 pairs per round:
    the three grammars must be bit-identical and every list must decode
    to its postings; K4 must launch once per round of the cuda build
-   (counts zeroed just before it, read just after);
+   (counts zeroed just before it, read just after); a second cuda build
+   under ``torch.profiler`` gives K4's device time summed over a build;
 4. kernels — one routed K1 (``list_intersect``) batch of 8,192 lanes
    from the Zipf boolean workload's conjunctions plus edge lanes, one K2
    (``page_score``) batch of real score-directory entries, and one K3
@@ -45,13 +46,17 @@ exits non-zero:
    just before each codec's run and read just after, and every answer is
    checked against ``naive_eval`` / ``rank_oracle``.  Then (5b) each
    kernel's largest launch of the serve phase — for K1 and K3 the ranked
-   membership round, about two million lanes — is held against its plain
-   version on the same inputs and timed the same way, beside one PyTorch
-   ``searchsorted`` over the uncompressed postings that computes the same
-   ``next_geq`` answers (the library time of K1 and K3);
-6. profile — a second, smaller serve pass under ``torch.profiler``: the
-   device's busy and idle share and where its time went (phase 3b does
-   the same for a second cuda build);
+   membership round, about two million lanes — and every K2 launch of it
+   is held against its plain version on the same inputs and timed the
+   same way, beside one PyTorch ``searchsorted`` over the uncompressed
+   postings that computes the same ``next_geq`` answers (the library time
+   of K1 and K3);
+6. profile — the ``repair`` and ``ef`` passes of phase 5 again, on fresh
+   servers under ``torch.profiler``: each kernel's device time summed
+   over its launches on the path (K1 and K2 in ``repair``, K3 in
+   ``ef``); then a second, smaller ``repair`` pass: the device's busy and
+   idle share and where its time went (phase 3b does the same for a
+   second cuda build);
 7. rebuild — ``QueryServer.rebuild`` of the running ``repair`` server
    with the cuda builder of phase 3b (K4 once per round, the grammar of
    3b again, the index version moved), then the same 256 boolean and 64
@@ -72,13 +77,16 @@ exits non-zero:
    popcount), then each kernel is held against its plain version and
    timed beside its bound and its library yardstick (``torch.cumsum``,
    row-wise ``torch.searchsorted``, ``torch.bitwise_and``; none for K5).
-   Last, ``repro_torch.launch.quickstart`` runs on the card.
+   The entry points run once more under ``torch.profiler`` for each
+   kernel's device time summed over the phase.  Last,
+   ``repro_torch.launch.quickstart`` runs on the card.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
-the cuda build, K5-K8 in phase 8 — and times and bounds at its main
-launch, with every batch it was held on under ``shapes``), the
-``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
+the cuda build, K5-K8 in phase 8 — times and bounds at its main launch,
+``path_ms``, its device time summed over the launches of its path, with
+every batch it was held on under ``shapes``), the ``nvidia-smi`` line,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -87,6 +95,7 @@ import argparse
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -186,7 +195,7 @@ def _profile(fn) -> dict:
     stats = pstats.Stats(host).stats
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:8]
     return dict(wall=wall, busy=sum(ms for _, ms, _ in dev),
-                events=sum(n for _, _, n in dev),
+                events=sum(n for _, _, n in dev), entries=dev,
                 device=[(k, ms) for k, ms, _ in dev[:5]],
                 host=[(f"{Path(f).name}:{line}({fn})", tt * 1e3)
                       for (f, line, fn), (_, _, tt, _, _) in top])
@@ -201,6 +210,51 @@ def _print_profile(tag: str, what: str, prof: dict) -> None:
         f"{k[:70]} {ms:.2f} ms" for k, ms in prof["device"]))
     print(f"[{tag}] host self time: " + "; ".join(
         f"{k} {ms:.0f} ms" for k, ms in prof["host"]))
+
+
+def _globals(name: str) -> tuple[str, ...]:
+    """The ``__global__`` functions of a kernel's source: the names its
+    launches carry in a profile."""
+    src = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
+    return tuple(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+        src))
+
+
+def _profile_path(fn, names) -> tuple[dict, dict]:
+    """``_profile(fn)`` and, for each kernel in ``names``, its device ms and
+    launches summed over the profile's entries of its ``__global__``
+    functions, from a session that recorded every launch of it
+    (``kernels.LAUNCHES`` counts them).  The profiler has recorded
+    launches but no kernels in some sessions, so ``fn`` (which must be
+    repeatable) runs again, up to six sessions, for the kernels still
+    missing; a kernel never recorded whole is left out of the result
+    (``_kernel_row`` then reports its path as not recorded)."""
+    from repro_torch import kernels as KR
+    path, missing = {}, list(names)
+    for attempt in range(1, 7):
+        before = dict(KR.LAUNCHES)
+        prof = _profile(fn)
+        for name in missing:
+            pat = re.compile(r"\b(" + "|".join(_globals(name)) + r")\b")
+            hits = [(ms, n) for key, ms, n in prof["entries"]
+                    if pat.search(key)]
+            ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            if n and n == KR.LAUNCHES[name] - before[name]:
+                path[name] = (ms, n)
+        missing = [n for n in names if n not in path]
+        if not missing:
+            break
+        print(f"[timing] profile session {attempt} of 6 did not record "
+              f"every launch of {missing}")
+    return prof, path
+
+
+def _print_path(tag: str, what: str, paths: dict, names) -> None:
+    print(f"[{tag}] device time of each kernel summed over {what}: "
+          + "; ".join(f"{name} {paths[name][0]:.5f} ms in "
+                      f"{paths[name][1]} launches" if name in paths else
+                      f"{name} not recorded" for name in names))
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -709,14 +763,16 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
     with every launch count zeroed just before and read just after, and
     check every answer against ``naive_eval`` / ``rank_oracle``.  Records
     each kernel launch's batch size (lanes / entries) on the way in and
-    keeps the inputs of each kernel's largest launch.  Returns the
-    launches, shapes, largest launches, times, latencies and stats."""
+    keeps the inputs of each kernel's largest launch, and of every K2
+    launch.  Returns the launches, shapes, largest and K2 launches,
+    times, latencies and stats."""
     import numpy as np
     import torch
     from repro_torch import kernels as KR
     from repro_torch.query import naive_eval, rank_oracle
     shapes = {name: [] for _, name in wrappers}
     largest: dict[str, tuple] = {}
+    k2_calls = []
     phase = ["boolean"]
 
     def recording(name, fn):
@@ -725,6 +781,8 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
             shapes[name].append(n)
             if n > largest.get(name, (0,))[0]:
                 largest[name] = (n, phase[0], a, kw)
+            if name == "page_score":
+                k2_calls.append((n, phase[0], a, kw))
             return fn(*a, **kw)
         return call
 
@@ -756,7 +814,7 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
                 and np.array_equal(got.scores, scores)):
             raise SystemExit(f"[serve] ranked answer differs: {bag}")
     return dict(launches=launches, shapes=shapes, largest=largest,
-                t_bool=t_bool, t_rank=t_rank, lat_bool=lat[n0:n_lat],
+                k2_calls=k2_calls, t_bool=t_bool, t_rank=t_rank, lat_bool=lat[n0:n_lat],
                 lat_rank=lat[n_lat:], stats=srv.serve_stats())
 
 
@@ -795,19 +853,32 @@ def _print_hold(name: str, row: dict, unit: str, against: str) -> None:
           f"{row['plain_call_ms']:.3f} ms)")
 
 
-def _kernel_row(name, source, replaces, launches, main, *others) -> dict:
+def _kernel_row(name, source, replaces, launches, path, main,
+                *others) -> dict:
     """One entry of the ``kernels`` line: the top-level numbers are those
     of the kernel's main launch (K1-K3: its largest serve launch; K4:
     round 1 of the cuda build; K5-K8: the full-size launch of phase 8),
-    with its library yardstick's time there, if it has one; every batch
-    it was held on is under ``shapes``."""
+    with its library yardstick's time there, if it has one; ``path_ms``
+    is its device time summed over every launch on its path (K1, K2 in
+    the ``repair`` serve pass, K3 in the ``ef`` pass, K4 over one cuda
+    build, K5-K8 in phase 8), from ``torch.profiler``, with the launches
+    the profile saw — or null (``path_from`` "not recorded") where no
+    session recorded them all; every batch it was held on is under
+    ``shapes``."""
+    path_ms, path_n = path.get(name, (None, None))
+    if name not in path:
+        print(f"[timing] {name}: no profile session recorded every launch "
+              f"of its path; path_ms not recorded")
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches[name],
         max_abs_err=max(r["max_abs_err"] for r in (main, *others)),
         ms=main["ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        library_ms=main.get("library_ms"), shapes=[main, *others])
+        library_ms=main.get("library_ms"), path_ms=path_ms,
+        path_launches=path_n,
+        path_from="profile" if name in path else "not recorded",
+        shapes=[main, *others])
 
 
 def _as_int(out):
@@ -982,18 +1053,21 @@ def _aux(lists, res, fi, queries, seed: int) -> dict:
     torch.cuda.synchronize()
 
     # the path: each entry point at full size and on its second batch
+    def drive():
+        outs = (K6.gap_decode(g6, f6), K6.gap_decode(*e6),
+                K5.grammar_expand(syms5, *tabs, max_depth=fi.max_depth),
+                K5.grammar_expand(terms5, *tabs, max_depth=fi.max_depth),
+                K5.grammar_expand(cut5, *tabs,       # held below
+                                  max_depth=fi.max_depth // 2),
+                K7.bucket_intersect(a7, b7), K7.bucket_intersect(*e7),
+                *K8.bitmap_and_count(a8, b8), *K8.bitmap_and_count(*e8))
+        torch.cuda.synchronize()
+        return outs
+
     KR.reset_launches()
     t0 = time.perf_counter()
-    out6 = K6.gap_decode(g6, f6)
-    out6e = K6.gap_decode(*e6)
-    out5 = K5.grammar_expand(syms5, *tabs, max_depth=fi.max_depth)
-    out5t = K5.grammar_expand(terms5, *tabs, max_depth=fi.max_depth)
-    K5.grammar_expand(cut5, *tabs, max_depth=fi.max_depth // 2)  # held below
-    out7 = K7.bucket_intersect(a7, b7)
-    out7e = K7.bucket_intersect(*e7)
-    out8, cnt8 = K8.bitmap_and_count(a8, b8)
-    out8e, cnt8e = K8.bitmap_and_count(*e8)
-    torch.cuda.synchronize()
+    (out6, out6e, out5, out5t, _, out7, out7e, out8, cnt8, out8e,
+     cnt8e) = drive()
     t_path = time.perf_counter() - t0
     launches = dict(KR.LAUNCHES)
     for name in AUX_KERNELS:
@@ -1068,6 +1142,9 @@ def _aux(lists, res, fi, queries, seed: int) -> dict:
         raise SystemExit("[aux] bitmap_and_count: the pairs' total differs")
 
     aux_launches = {k: launches[k] for k in AUX_KERNELS}
+    _, path = _profile_path(drive, AUX_KERNELS)
+    _print_path("aux", "the entry points run again under torch.profiler",
+                path, AUX_KERNELS)
     print(f"[aux] entry points of K5-K8 on the card in {t_path:.3f} s "
           f"(inputs made before, checks and timing after), launches "
           f"{aux_launches}; every output equal its numpy oracle: "
@@ -1147,7 +1224,7 @@ def _aux(lists, res, fi, queries, seed: int) -> dict:
     # cold copies
     k8[0]["library_ms"] = _device_ms(lambda: torch.bitwise_and(
         *(t.view(torch.int32) for t in next(cold))), 100)[0]
-    return dict(launches=launches,
+    return dict(launches=launches, path=path,
                 rows=dict(grammar_expand=k5, gap_decode=k6,
                           bucket_intersect=k7, bitmap_and=k8))
 
@@ -1242,9 +1319,12 @@ def main() -> int:
           f"grammars bit-identical, every list decodes to its postings; "
           f"pair_count launched {con['launches']['pair_count']} times (= "
           f"rounds)")
+    prof, k4_path = _profile_path(
+        lambda: con["builder"].build_grammar(lists), ["pair_count"])
     _print_profile("construct", f"a second cuda build ({st['rounds']} "
-                   f"rounds)", _profile(
-                       lambda: con["builder"].build_grammar(lists)))
+                   f"rounds)", prof)
+    _print_path("construct", "the second cuda build", k4_path,
+                ["pair_count"])
 
     # 4. kernels against their plain versions, on the card
     lids, xs = _k1_lanes(lists, res.universe, lengths, args.seed)
@@ -1425,12 +1505,15 @@ def main() -> int:
     k1_srv = dict(batch=f"largest serve launch ({ph} queries)", size=n,
                   library_ms=_library(lib, a[0], a[1], out), **k1_srv)
     _print_hold("list_intersect", k1_srv, "lanes", "plain and oracle")
-    n, ph, a, kw = runs["repair"][1]["largest"]["page_score"]
-    _, k2_srv = _hold("page_score", K2.page_score, K2.page_score_plain, a,
-                      kw, lambda: k2_traffic(a[:6], a[6], kw, kw["b_pad"]))
-    k2_srv = dict(batch=f"largest serve launch ({ph} queries), "
-                  f"{kw['b_pad']} slots", size=n, **k2_srv)
-    _print_hold("page_score", k2_srv, "entries", "plain")
+    k2_srv = []
+    for i, (n, ph, a, kw) in enumerate(sorted(
+            runs["repair"][1]["k2_calls"], key=lambda c: -c[0])):
+        _, row = _hold("page_score", K2.page_score, K2.page_score_plain, a,
+                       kw, lambda: k2_traffic(a[:6], a[6], kw, kw["b_pad"]))
+        row = dict(batch=f"{'largest ' if i == 0 else ''}serve launch "
+                   f"({ph} queries), {kw['b_pad']} slots", size=n, **row)
+        _print_hold("page_score", row, "entries", "plain")
+        k2_srv.append(row)
     mode, (n, ph, a, kw) = max(
         ((m, runs[m][1]["largest"]["ef_next_geq"]) for m in TIER_MODES
          if "ef_next_geq" in runs[m][1]["largest"]), key=lambda r: r[1][0])
@@ -1454,20 +1537,39 @@ def main() -> int:
           f"list_intersect's launch {k1_srv['library_ms']:.5f} ms, "
           f"ef_next_geq's launch {k3_srv['library_ms']:.5f} ms")
 
+    # 6. profile: the serve passes of phase 5 again, on fresh servers (no
+    # memo, no result cache) under torch.profiler — each kernel's device
+    # time summed over its launches on the path ('repair': K1, K2; 'ef': K3)
+    def fresh_pass(codec):
+        def run():
+            fresh = QueryServer(res, engine="cuda", device="cuda",
+                                batch_window=CONCURRENCY, codec=codec)
+            fresh.search_many(queries)
+            fresh.search_topk_many(bags, TOPK)
+        return run
+
+    _, serve_path = _profile_path(fresh_pass("repair"),
+                                  ["list_intersect", "page_score"])
+    _print_path("profile", f"the 'repair' serve pass (phase 5 launched "
+                f"{launches['list_intersect']} and {launches['page_score']})",
+                serve_path, ["list_intersect", "page_score"])
     k3_launches = {"ef_next_geq": runs["ef"][1]["launches"]["ef_next_geq"]}
+    _, ef_path = _profile_path(fresh_pass(tiers["ef"]), ["ef_next_geq"])
+    _print_path("profile", f"the 'ef' serve pass (phase 5 launched "
+                f"{k3_launches['ef_next_geq']})", ef_path, ["ef_next_geq"])
     report = [
         _kernel_row("list_intersect", "src/repro_torch/csrc/list_intersect.cu",
                     "src/repro/kernels/list_intersect/list_intersect.py:158",
-                    launches, k1_srv, k1_bool),
+                    launches, serve_path, k1_srv, k1_bool),
         _kernel_row("page_score", "src/repro_torch/csrc/page_score.cu",
                     "src/repro/kernels/page_score/page_score.py:122",
-                    launches, k2_srv, k2_dir),
+                    launches, serve_path, *k2_srv, k2_dir),
         _kernel_row("ef_next_geq", "src/repro_torch/csrc/ef_next_geq.cu",
                     "src/repro/kernels/ef_next_geq/ef_next_geq.py:131",
-                    k3_launches, k3_srv, k3_bool),
+                    k3_launches, ef_path, k3_srv, k3_bool),
         _kernel_row("pair_count", "src/repro_torch/csrc/pair_count.cu",
                     "src/repro/kernels/pair_count/pair_count.py:50",
-                    con["launches"], k4_r1, k4_edge)]
+                    con["launches"], k4_path, k4_r1, k4_edge)]
     print("[kernels] " + "; ".join(
         f"{r['name']}: {r['launches']} launches on its path, 0 mismatches, "
         f"{r['ms']:.5f} ms at its main launch" for r in report)
@@ -1525,7 +1627,7 @@ def main() -> int:
         report.append(_kernel_row(
             name, f"src/repro_torch/csrc/{name}.cu",
             f"src/repro/kernels/{name}/{sources[name]}", aux["launches"],
-            *rows))
+            aux["path"], *rows))
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):

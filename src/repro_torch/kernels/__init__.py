@@ -3,12 +3,13 @@
 * ``list_intersect`` (K1) — batched ``next_geq`` over the paged Re-Pair
   stream: phrase-sum skipping + grammar descent, one thread per lane.
 * ``page_score`` (K2) — block-max page-entry decode of ranked retrieval's
-  ScoreRound, one block per directory entry.
+  ScoreRound: a persistent grid over units of 512 live output slots, two
+  per thread, and wide stores of the padding.
 * ``ef_next_geq`` (K3) — Elias-Fano ``next_geq`` of the codec tier: the
   three high-bits selects and the low-bits search, one thread per lane.
 * ``pair_count`` (K4) — the pair histogram of device Re-Pair
-  construction: each pair slot binary-searches a sorted candidate table in
-  shared memory, one thread per slot.
+  construction: each block hashes the candidate table into shared memory
+  and counts its share of the pair stream; one launch, no sort.
 * ``grammar_expand`` (K5) — positional phrase expansion: one thread per
   output slot descends the grammar, one warp per symbol's row.
 * ``gap_decode`` (K6) — row-wise d-gap decode: one warp per row scans it
@@ -33,6 +34,7 @@ kernel, so a run can show that its main path went through them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -75,6 +77,13 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device: the launch plans of K2
+    and K4 size their grids by it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

@@ -23,7 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import check_operands, launch
+from .. import check_operands, launch, sm_count
 from ...core.index import INT_INF, PagedIndex
 from ...engine.torch_backend import descend_position
 
@@ -32,7 +32,7 @@ from ...engine.torch_backend import descend_position
 TILE_B = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 14 + [_I] * 5
+_ARGTYPES = [_P] * 14 + [_I] * 6
 _TABLES = ("sym_left", "sym_right", "sym_sum", "sym_len", "c_syms_pg",
            "c_sums_pg", "clens_pg")
 
@@ -128,7 +128,8 @@ def page_score(pages: torch.Tensor, slo: torch.Tensor, nsym: torch.Tensor,
         launch("page_score", dev, _ARGTYPES,
                *(t.data_ptr() for t in meta.values()),
                *(tables[k].data_ptr() for k in _TABLES), out.data_ptr(),
-               q, int(page_shape[1]), b_pad, max_depth, T)
+               q, int(page_shape[1]), b_pad, max_depth, T,
+               sm_count(dev))
     return out
 
 

@@ -20,6 +20,8 @@ holds:
 * ``pair_count_plain`` — the plain version: sort the candidates' 64-bit
   keys, ``searchsorted`` every valid slot's key into them, ``bincount``
   the hits, and read each candidate's count at its key's first position;
+* ``count_plan`` and ``pair_slot`` — the kernel's launch geometry (hash
+  table per block, chunks, grid) and its hash function, on the host;
 * ``pair_count`` — the wrapper: checks its tensors, launches the kernel
   on CUDA tensors, runs the plain version on CPU tensors.
 """
@@ -27,13 +29,53 @@ holds:
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from .. import check_operands, launch
+from .. import check_operands, launch, sm_count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 2
+_ARGTYPES = [_P] * 6 + [_I] * 5
+
+#: candidate keys in one block's hash table; a longer table is cut into
+#: chunks of this many, each counted over the whole stream
+CHUNK = 4096
+#: the fewest pair slots a block of the grid counts
+MIN_SLOTS_PER_BLOCK = 4096
+
+
+class CountPlan(NamedTuple):
+    """One launch's geometry: ``chunk`` keys per hash table (the grid's y
+    axis has one block row per chunk), tables of ``2**bits`` slots,
+    ``blocks`` on the grid's x axis."""
+    chunk: int
+    bits: int
+    blocks: int
+
+
+def count_plan(K: int, N: int, sms: int) -> CountPlan:
+    """Launch geometry of K4 for K candidates over N slots on a card of
+    ``sms`` SMs: tables of at least four times their keys (a power of two,
+    64 or more), one block per SM — split over the chunks — but none with
+    fewer than ``MIN_SLOTS_PER_BLOCK`` slots."""
+    chunk = max(1, min(K, CHUNK))
+    bits = max(6, (chunk - 1).bit_length() + 2)
+    blocks = max(1, min(-(-N // MIN_SLOTS_PER_BLOCK), sms // -(-K // chunk)))
+    return CountPlan(chunk, bits, blocks)
+
+
+def pair_slot(a, b, bits: int) -> np.ndarray:
+    """The home slot of each pair's key in a table of ``2**bits`` slots —
+    the kernel's ``slot_of``: the key folded to 64 bits by ``x ^ x >> 32``,
+    times the 64-bit golden ratio (wrapping), top ``bits`` bits."""
+    key = (np.asarray(a, np.int64) << 32) + (np.asarray(b, np.int64)
+                                             & 0xFFFFFFFF)
+    x = key.astype(np.uint64)
+    x ^= x >> np.uint64(32)
+    x *= np.uint64(0x9E3779B97F4A7C15)
+    return (x >> np.uint64(64 - bits)).astype(np.int64)
 
 
 def pair_keys(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,14 +134,10 @@ def pair_count(cand_a: torch.Tensor, cand_b: torch.Tensor,
         return pair_count_plain(cand_a, cand_b, pa, pb, vm)
     if dev.type != "cuda":
         raise ValueError(f"pair_count: unsupported device {dev}")
-    out = torch.empty_like(cand_a)
+    out = torch.zeros_like(cand_a)
     if K:
-        # scratch of the kernel: sorted keys, and per candidate its first
-        # position, its rank among equal keys, and the histogram
-        keys = torch.empty(K, dtype=torch.int64, device=dev)
-        aux = torch.empty(3 * K, dtype=torch.int32, device=dev)
+        plan = count_plan(K, N, sm_count(dev))
         launch("pair_count", dev, _ARGTYPES, cand_a.data_ptr(),
                cand_b.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-               vm.data_ptr(), keys.data_ptr(), aux.data_ptr(),
-               out.data_ptr(), K, N)
+               vm.data_ptr(), out.data_ptr(), K, N, *plan)
     return out

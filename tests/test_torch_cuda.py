@@ -10,7 +10,11 @@ installed:
 * ``list_intersect`` (K1): routed lanes with every edge lane, at page 2048
   and at page 128 — kernel == plain version == set oracle;
 * ``page_score`` (K2): every block-max directory entry plus count-0 pad
-  rows — kernel == plain version == the lists' slices;
+  rows — kernel == plain version == the lists' slices; and the tiled
+  design's edges at page 128 and 2048 (a 20,000-slot entry beside
+  entries of 1): counts on and beside 128- and 256-slot edges, count 0,
+  empty windows with and without the head, a cut ``max_depth``, sums
+  that wrap int32;
 * ``ef_next_geq`` (K3): edge lanes (absent lists, heads, tails, past the
   tail, negative probes, every bucket boundary) and a random batch over an
   EF store with ``l == 0`` lists and word-straddling fields — kernel ==
@@ -22,7 +26,10 @@ installed:
 * ``pair_count`` (K4): random streams with tables of one and of several
   shared-memory chunks (duplicates straddling a chunk boundary),
   sentinels, negative symbols, all-invalid, one-slot and empty streams —
-  kernel == plain version == numpy oracle;
+  kernel == plain version == numpy oracle; and the hash-table design's
+  edges: keys crowding a few home slots, one pair over a whole
+  954,112-slot stream, K = 1, 8,192 and 32,768, streams of every length
+  mod 4 (and N = 0) aligned and not, shuffled sentinels and duplicates;
 * ``CudaBuilder`` and ``TorchBuilder`` on the card == ``HostBuilder``,
   with one K4 launch per round, and ``QueryServer.rebuild`` on the card
   serving the rebuilt index exactly;
@@ -454,3 +461,182 @@ def test_grammar_expand_kernel_terminals_only(card):
     got = _counted("grammar_expand", K5.grammar_expand, syms, *tabs,
                    max_depth=4)
     assert torch.equal(got[:, 0], syms * 3) and not got[:, 1:].any()
+
+
+# -- K4's hash-table design at its edges --------------------------------------
+
+def _k4_oracle(ca, cb, pa, pb, vm):
+    """numpy counts: one ``np.unique`` of the valid slots' 64-bit keys,
+    then a lookup per candidate (``-1`` candidates count 0)."""
+    key = lambda a, b: a.astype(np.int64) * 2**32 + (b.astype(np.int64)
+                                                      & 0xFFFFFFFF)
+    uniq, cnt = np.unique(key(pa, pb)[vm != 0], return_counts=True)
+    uniq = np.append(uniq, np.iinfo(np.int64).max)
+    cnt = np.append(cnt, 0)
+    k = key(ca, cb)
+    pos = np.searchsorted(uniq, k)
+    return np.where((uniq[pos] == k) & (ca >= 0), cnt[pos], 0)
+
+
+def _k4_check(card, ca, cb, pa, pb, vm, offset=0):
+    """K4 on the card == its plain version == the numpy oracle, one launch;
+    ``offset`` > 0 passes the stream as views that are not 16-byte
+    aligned."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(card)
+    cand = [t(ca), t(cb)]
+    stream = [t(np.concatenate([np.zeros(offset, np.int32), x]))[offset:]
+              for x in (pa, pb, vm)]
+    got = _counted("pair_count", K4.pair_count, *cand, *stream)
+    assert torch.equal(got, K4.pair_count_plain(*cand, *stream))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _k4_oracle(ca, cb, pa, pb, vm))
+    return got.cpu().numpy()
+
+
+def test_pair_count_colliding_keys(card):
+    """A full 4,096-key table whose keys crowd eight home slots (long
+    probe chains), half of the stream drawn from those keys and half from
+    absent keys with the same home slots (misses walk the chains)."""
+    rng = np.random.default_rng(21)
+    bits = K4.count_plan(4096, 1, 132).bits
+    a = rng.integers(0, 2**20, 4_000_000)
+    b = rng.integers(0, 2**20, 4_000_000)
+    home = K4.pair_slot(a, b, bits)
+    crowd = np.nonzero(home < 8)[0]
+    assert crowd.size > 1200
+    keys = crowd[:1000]
+    absent = crowd[1000:1200]
+    ca = np.concatenate([a[keys], rng.integers(0, 2**20, 3096)])
+    cb = np.concatenate([b[keys], rng.integers(0, 2**20, 3096)])
+    pick = np.concatenate([rng.choice(keys, 50_000), rng.choice(absent,
+                                                                50_000)])
+    got = _k4_check(card, ca, cb, a[pick], b[pick],
+                    (rng.random(pick.size) < 0.9).astype(np.int32))
+    assert got[:1000].sum() > 40_000
+
+
+def test_pair_count_one_pair_over_whole_stream(card):
+    """One pair in every slot of a round-1-sized stream (every lane of
+    every warp hits one bin), with its duplicate and sentinels around it."""
+    n = 954_112
+    ca = np.full(4096, -1, np.int32)
+    cb = np.full(4096, -1, np.int32)
+    ca[[0, 17, 4095]], cb[[0, 17, 4095]] = (3, 3, 4), (4, 4, 3)
+    got = _k4_check(card, ca, cb, np.full(n, 3), np.full(n, 4),
+                    np.ones(n, np.int32))
+    assert got[0] == got[17] == n and not got[4095] and got.sum() == 2 * n
+
+
+@pytest.mark.parametrize("K", [1, 8192, 32_768])
+def test_pair_count_table_sizes(card, K):
+    """K = 1; and tables above one block's 4,096 keys (two and eight
+    chunks), with duplicates across the chunks."""
+    rng = np.random.default_rng(K)
+    n = 300_001
+    alphabet = 200
+    ca = rng.integers(0, alphabet, K).astype(np.int32)
+    cb = rng.integers(0, alphabet, K).astype(np.int32)
+    ca[K // 2:] = np.roll(ca[:K - K // 2], 3)     # copies in other chunks
+    pa = rng.integers(0, alphabet, n)
+    pb = rng.integers(0, alphabet, n)
+    got = _k4_check(card, ca, cb, pa, pb, np.ones(n, np.int32))
+    assert got.sum() > 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 4097, 300_003])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pair_count_stream_tails(card, n, offset):
+    """N not a multiple of 4 and N = 0 (the scalar tail of the 16-byte
+    loads), and streams that are not 16-byte aligned."""
+    rng = np.random.default_rng(n + offset)
+    ca = rng.integers(0, 6, 1037).astype(np.int32)
+    cb = rng.integers(0, 6, 1037).astype(np.int32)
+    got = _k4_check(card, ca, cb, rng.integers(0, 6, n),
+                    rng.integers(0, 6, n),
+                    (rng.random(n) < 0.8).astype(np.int32), offset)
+    assert n < 5 or got.sum() > 0
+
+
+def test_pair_count_sentinels_and_duplicates_in_any_order(card):
+    """A shuffled table: ``-1`` candidates anywhere (with any right),
+    real keys whose right is -1, each key copied up to five times at
+    random places; a stream with -1 symbols in valid slots."""
+    rng = np.random.default_rng(23)
+    base = rng.integers(0, 40, (700, 2))
+    base[:30, 1] = -1                              # a real key (a, -1)
+    copies = np.repeat(base, rng.integers(1, 6, 700), axis=0)
+    table = np.concatenate([copies, np.stack(
+        [np.full(400, -1), rng.integers(-1, 40, 400)], 1)])
+    table = table[rng.permutation(len(table))].astype(np.int32)
+    n = 200_000
+    pa = rng.integers(-1, 40, n)
+    pb = rng.integers(-1, 40, n)
+    got = _k4_check(card, table[:, 0], table[:, 1], pa, pb,
+                    (rng.random(n) < 0.85).astype(np.int32))
+    assert not got[table[:, 0] < 0].any() and got.sum() > 0
+
+
+# -- K2's tiled design at its edges --------------------------------------------
+
+@pytest.fixture(scope="module")
+def k2_res():
+    """A list of 20,000 consecutive documents (one gap, phrases doubling
+    in length) beside singletons, short random lists and a wide random
+    list."""
+    rng = np.random.default_rng(31)
+    lists = ([np.arange(1000, 21_000, dtype=np.int64)]
+             + [np.asarray([int(x)]) for x in rng.integers(0, 30_000, 8)]
+             + [np.unique(rng.integers(0, 30_000, int(rng.integers(2, 60))))
+                for _ in range(10)]
+             + [np.unique(rng.integers(0, 30_000, 3000))])
+    return lists, repair_compress(lists)
+
+
+@pytest.mark.parametrize("variant", ["lists", "tile_edges", "empty",
+                                     "cut_depth", "wrap"])
+@pytest.mark.parametrize("page", [2048, 128])
+def test_page_score_edges(card, k2_res, page, variant):
+    """Every directory entry (the 20,000-slot entry at page 2048 beside
+    entries of 1) with: its own metadata (rows == the lists' slices);
+    counts on, just below and just past 128- and 256-slot edges; count 0,
+    an empty window with and without the head; a cut ``max_depth``; bases
+    near INT_MAX, so sums wrap — kernel == plain version."""
+    lists, res = k2_res
+    pt = TI.build_paged_index(TI.build_flat_index(res, device=card), page)
+    si = TI.build_score_index(res, page_size=page)
+    tables, statics = K2.pad_score_operands(pt)
+    e = np.arange(si.pg_list.size)
+    pages = si.pg_page[e].astype(np.int64)
+    meta = [pages, si.pg_sym_lo[e] - pages * page,
+            si.pg_sym_hi[e] - si.pg_sym_lo[e], si.pg_base[e],
+            si.pg_head[e], si.pg_count[e]]
+    meta = [np.asarray(m, np.int64).copy() for m in meta]
+    b_pad = max(128, 1 << (int(si.max_page_elems) - 1).bit_length())
+    if page == 2048:
+        assert si.pg_count.max() == 20_000 and b_pad == 32_768
+        assert (si.pg_count == 1).any()
+    depth = statics["max_depth"]
+    if variant == "tile_edges":
+        wide = np.argsort(si.pg_count)[::-1][:6]
+        meta[5][wide] = [127, 128, 129, 255, 256, 257]
+    elif variant == "empty":
+        meta[5][:3] = 0
+        meta[2][3:6] = 0
+        meta[4][3], meta[4][4] = 1, 0
+        meta[5][3:6] = 1
+    elif variant == "cut_depth":
+        depth = max(1, depth // 2)
+    elif variant == "wrap":
+        meta[3][::2] = 2**31 - 100
+    t = [torch.from_numpy(np.ascontiguousarray(m, np.int32)).to(card)
+         for m in meta]
+    kw = dict(b_pad=b_pad, max_depth=depth, T=statics["T"])
+    got = _counted("page_score", K2.page_score, *t, tables, **kw)
+    assert torch.equal(got, K2.page_score_plain(*t, tables, **kw))
+    if variant == "lists":
+        rows = got.cpu().numpy()
+        for q in e.tolist():
+            lo, c = int(si.pg_elem_lo[q]), int(si.pg_count[q])
+            np.testing.assert_array_equal(
+                rows[q, :c], lists[int(si.pg_list[q])][lo:lo + c])
+            assert (rows[q, c:] == INF).all()

@@ -166,3 +166,40 @@ def test_plain_version_counts_no_launch(sstate):
     PS.page_decode(tables, statics, *_entry_meta(si, np.arange(3)),
                    b_pad=_b_pad(si))
     assert KR.LAUNCHES == before
+
+
+
+@pytest.mark.parametrize("variant", ["tile_edges", "empty", "cut_depth",
+                                     "wrap"])
+def test_plain_k2_edge_metadata_matches_pallas(sstate, variant):
+    """The card tests' edge metadata on every directory entry: counts on,
+    just below and just past the 128- and 256-slot edges; count 0 and
+    empty windows with and without the head; a cut ``max_depth``; bases
+    near INT_MAX, so sums wrap — plain K2 (the CPU wrapper) == the Pallas
+    kernel (interpret)."""
+    _, pj, pt, si = sstate
+    meta = [np.asarray(m, np.int64).copy()
+            for m in _entry_meta(si, np.arange(si.pg_list.size))]
+    tables, statics = PS.pad_score_operands(pt)
+    tables_j, statics_j = PSJ.pad_score_operands(pj)
+    if variant == "tile_edges":
+        wide = np.argsort(si.pg_count, kind="stable")[::-1][:6]
+        meta[5][wide] = [127, 128, 129, 255, 256, 257][:wide.size]
+    elif variant == "empty":
+        meta[5][:3] = 0
+        meta[2][3:6] = 0
+        meta[4][3], meta[4][4] = 1, 0
+        meta[5][3:6] = 1
+    elif variant == "cut_depth":
+        depth = max(1, statics["max_depth"] // 2)
+        statics = dict(statics, max_depth=depth)
+        statics_j = dict(statics_j, max_depth=depth)
+    elif variant == "wrap":
+        meta[3][::2] = 2**31 - 100
+    b_pad = max(_b_pad(si), 512)
+    got = PS.page_decode(tables, statics, *meta, b_pad=b_pad)
+    want = PSJ.page_decode(tables_j, statics_j, *meta, b_pad=b_pad,
+                           interpret=True)
+    np.testing.assert_array_equal(got, want)
+    if variant == "wrap":
+        assert (got[::2] < 0).any()

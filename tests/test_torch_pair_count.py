@@ -186,3 +186,88 @@ def test_wrapper_checks_operands():
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         pair_count(meta, meta, meta, meta, meta)
+
+
+@pytest.mark.parametrize("K, N, sms", [
+    (4096, 954_112, 132), (1037, 300_001, 132), (1, 0, 132), (1, 5, 132),
+    (600, 2048, 4), (8192, 954_112, 132), (32_768, 300_003, 132),
+    (100_000, 10, 2)])
+def test_count_plan(K, N, sms):
+    """A chunk holds at most CHUNK candidates; a table has at least four
+    times its keys in a power of two of 64 or more slots, and with the
+    chunk's keys and counters (12 bytes each) fits Hopper's 227 KiB of
+    shared memory per block; the grid has at most one block per SM and
+    gives no block fewer than MIN_SLOTS_PER_BLOCK slots."""
+    from repro_torch.kernels.pair_count import ops
+    p = ops.count_plan(K, N, sms)
+    chunks = -(-K // p.chunk)
+    assert p.chunk <= ops.CHUNK and (chunks - 1) * p.chunk < K
+    slots = 1 << p.bits
+    assert slots >= max(64, 4 * p.chunk) and slots < max(128, 8 * p.chunk)
+    assert 12 * p.chunk + 4 * slots <= 227 * 1024
+    assert 1 <= p.blocks <= max(1, sms // chunks)
+    assert p.blocks == 1 or N >= (p.blocks - 1) * ops.MIN_SLOTS_PER_BLOCK
+    if (K, N, sms) == (4096, 954_112, 132):
+        assert p == ops.CountPlan(4096, 14, 132)
+
+
+def test_pair_slot_is_the_kernels_hash():
+    """``pair_slot`` against the hash written out in Python integers, over
+    the whole int32 range of both halves; the slots lie in the table and
+    4,096 random keys spread over 16,384 slots with short probe runs."""
+    from repro_torch.kernels.pair_count import ops
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 2**31, 500)
+    b = rng.integers(-2**31, 2**31, 500)
+    a[:3], b[:3] = (0, 2**31 - 1, 5), (-2**31, 2**31 - 1, -1)
+    for bits in (6, 12, 13):
+        got = ops.pair_slot(a, b, bits)
+        for x, y, h in zip(a.tolist(), b.tolist(), got.tolist()):
+            k = (x << 32) + (y & 0xFFFFFFFF)
+            k ^= k >> 32
+            k = (k * 0x9E3779B97F4A7C15) % 2**64
+            assert h == k >> (64 - bits)
+    keys = rng.integers(0, 20_000, (4096, 2))
+    keys = np.unique(keys, axis=0)
+    home = ops.pair_slot(keys[:, 0], keys[:, 1], 14)
+    taken = np.zeros(1 << 14, bool)
+    probes = []
+    for h in home.tolist():                 # linear probing, in order
+        p = 1
+        while taken[h]:
+            h, p = (h + 1) % (1 << 14), p + 1
+        taken[h] = True
+        probes.append(p)
+    assert np.mean(probes) < 1.3 and max(probes) < 32
+
+
+
+@pytest.mark.parametrize("K", [1, 600, 4096, 8192])
+def test_colliding_keys_across_chunks(K):
+    """The wrapper on CPU tensors on the card tests' hardest table: keys
+    that crowd eight home slots of the kernel's table for K candidates
+    (``count_plan``'s bits), copies of them in every chunk, and a stream
+    half of hits, half of absent keys with the same home slots — against
+    a numpy oracle that counts each key with ``np.unique``."""
+    from repro_torch.kernels.pair_count import ops
+    rng = np.random.default_rng(K)
+    bits = ops.count_plan(K, 1, 132).bits
+    a = rng.integers(0, 2**20, 400_000).astype(np.int32)
+    b = rng.integers(-2**20, 2**20, 400_000).astype(np.int32)
+    crowd = np.nonzero(ops.pair_slot(a, b, bits) < 8)[0]
+    keys, absent = crowd[:min(K, 64)], crowd[64:128]
+    take = rng.choice(keys, K)
+    ca, cb = a[take], b[take]
+    ca[rng.random(K) < 0.1] = -1
+    pick = np.concatenate([rng.choice(keys, 5_000), rng.choice(absent,
+                                                               5_000)])
+    pa, pb = a[pick], b[pick]
+    vm = (rng.random(pick.size) < 0.9).astype(np.int32)
+    got = pair_count(T(ca), T(cb), T(pa), T(pb), T(vm)).numpy()
+    key = pair_keys(T(pa), T(pb)).numpy()[vm != 0]
+    uniq, cnt = np.unique(key, return_counts=True)
+    want = dict(zip(uniq.tolist(), cnt.tolist()))
+    ck = pair_keys(T(ca), T(cb)).numpy()
+    np.testing.assert_array_equal(
+        got, [0 if x < 0 else want.get(k, 0) for x, k in zip(ca, ck)])
+    assert got.sum() > 0
