@@ -79,14 +79,29 @@ exits non-zero:
    row-wise ``torch.searchsorted``, ``torch.bitwise_and``; none for K5).
    The entry points run once more under ``torch.profiler`` for each
    kernel's device time summed over the phase.  Last,
-   ``repro_torch.launch.quickstart`` runs on the card.
+   ``repro_torch.launch.quickstart`` runs on the card;
+9. out-of-core — the phase-3 index served again, the same 256 boolean
+   and 64 ranked queries, by ``QueryServer(engine="cuda", store="mmap",
+   resident_pages=num_pages // 10)`` (18 of 183 pages): the stream lives
+   in an mmap page store and reaches the card through the bounded
+   resident pool.  Counts are zeroed just before and read just after:
+   K1 must launch, every launch through the pool's slot table (its
+   resident route).  Every answer must equal ``naive_eval`` /
+   ``rank_oracle`` and phase 5's fully resident answers.
+   ``ResidentSet.stats()`` (budget, faults, evictions, fault bytes,
+   ``pool_grows``, hit rate, prefetch counters), q/s and p50/p95 are
+   printed.  K1's largest resident launch of each workload is held
+   against its plain version on the same pool and slot table, the pool's
+   rows outside the launch's working set poisoned, and timed beside the
+   fully resident route on the same lanes.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
 the cuda build, K5-K8 in phase 8 — times and bounds at its main launch,
 ``path_ms``, its device time summed over the launches of its path, with
-every batch it was held on under ``shapes``), the ``nvidia-smi`` line,
-and ``{"ok": true, "device": {...}}``.
+every batch it was held on under ``shapes``, K1's resident route of
+phase 9 among them), the ``nvidia-smi`` line, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -277,11 +292,14 @@ def _grammar_nodes(tables, T, roots):
     return int((nodes >= T).sum()), int((nodes < T).sum())
 
 
-def k1_traffic(lanes, tables, statics) -> tuple[float, float]:
+def k1_traffic(lanes, tables, statics, page=None) -> tuple[float, float]:
     """Bytes and int32 operations one K1 launch needs on these lanes: each
     input read once (lane arrays, per-list span ends and lasts, the union
     of stream positions the skip loops read, the halting symbols, the
-    grammar nodes the descents visit), the output written once."""
+    grammar nodes the descents visit), the output written once.  The
+    stream is read from the whole paged ``tables``; with ``page`` (the
+    resident route) each stream page read also costs its slot-table entry
+    (4 bytes per distinct page)."""
     import torch
     lids, xs, pos0, s0 = lanes
     lid = lids.long()
@@ -307,7 +325,8 @@ def k1_traffic(lanes, tables, statics) -> tuple[float, float]:
     diff.index_add_(0, pos0[has].long(), torch.ones_like(pos0[has].long()))
     diff.index_add_(0, (pos0 + steps)[has].long(),
                     -torch.ones_like(pos0[has].long()))
-    scanned = int((diff.cumsum(0)[:n] > 0).sum())
+    in_scan = diff.cumsum(0)[:n] > 0
+    scanned = int(in_scan.sum())
     desc = live & (s < xs) & (pos < end)
     syms = tables["c_syms_pg"].reshape(-1)[pos[desc].long()]
     T = statics["T"]
@@ -332,6 +351,10 @@ def k1_traffic(lanes, tables, statics) -> tuple[float, float]:
               + 4 * scanned + 4 * int(torch.unique(pos[desc]).numel())
               + 12 * n_rules + 4 * int((nodes < T).sum()))
     ops = 4 * q + 5 * int(steps.sum()) + 6 * depth_steps
+    if page is not None:
+        read = torch.cat([in_scan.nonzero().squeeze(1), pos[desc].long()])
+        nbytes += 4 * int(torch.unique(read // page).numel())
+        ops += int(steps.sum()) + int(desc.sum())
     return float(nbytes), float(ops)
 
 
@@ -763,15 +786,19 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
     with every launch count zeroed just before and read just after, and
     check every answer against ``naive_eval`` / ``rank_oracle``.  Records
     each kernel launch's batch size (lanes / entries) on the way in and
-    keeps the inputs of each kernel's largest launch, and of every K2
-    launch.  Returns the launches, shapes, largest and K2 launches,
-    times, latencies and stats."""
+    keeps the inputs of each kernel's largest launch (overall and per
+    workload), and of every K2 launch; a launch through a resident pool's
+    slot table is counted and its pool and table are copied as they were.
+    Returns the launches, shapes, those launches, times, latencies,
+    stats and the answers."""
     import numpy as np
     import torch
     from repro_torch import kernels as KR
     from repro_torch.query import naive_eval, rank_oracle
     shapes = {name: [] for _, name in wrappers}
     largest: dict[str, tuple] = {}
+    by_phase: dict[tuple, tuple] = {}
+    slot_calls = dict.fromkeys(shapes, 0)
     k2_calls = []
     phase = ["boolean"]
 
@@ -779,10 +806,20 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
         def call(*a, **kw):
             n = int(a[0].shape[0])
             shapes[name].append(n)
+            rec = (n, phase[0], a, kw)
+            if kw.get("slot_of_page") is not None:
+                # the resident route: later fault batches rewrite the
+                # pool in place, so keep this launch's pool and table
+                slot_calls[name] += 1
+                rec = (n, phase[0], (*a[:4], {k: v.clone() for k, v in
+                                              a[4].items()}),
+                       dict(kw, slot_of_page=kw["slot_of_page"].clone()))
             if n > largest.get(name, (0,))[0]:
-                largest[name] = (n, phase[0], a, kw)
+                largest[name] = rec
+            if n > by_phase.get((name, phase[0]), (0,))[0]:
+                by_phase[(name, phase[0])] = rec
             if name == "page_score":
-                k2_calls.append((n, phase[0], a, kw))
+                k2_calls.append(rec)
             return fn(*a, **kw)
         return call
 
@@ -814,8 +851,10 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
                 and np.array_equal(got.scores, scores)):
             raise SystemExit(f"[serve] ranked answer differs: {bag}")
     return dict(launches=launches, shapes=shapes, largest=largest,
-                k2_calls=k2_calls, t_bool=t_bool, t_rank=t_rank, lat_bool=lat[n0:n_lat],
-                lat_rank=lat[n_lat:], stats=srv.serve_stats())
+                by_phase=by_phase, slot_calls=slot_calls, k2_calls=k2_calls,
+                t_bool=t_bool, t_rank=t_rank, lat_bool=lat[n0:n_lat],
+                lat_rank=lat[n_lat:], stats=srv.serve_stats(), outs=outs,
+                ranked=ranked)
 
 
 def _hold(name, kernel, plain, args, kw, traffic, timing_args=None) -> tuple:
@@ -1229,6 +1268,119 @@ def _aux(lists, res, fi, queries, seed: int) -> dict:
                           bucket_intersect=k7, bitmap_and=k8))
 
 
+def _outofcore(res, lists, queries, bags, run5, num_pages, tables1, host1,
+               statics1, wrappers, lib) -> dict:
+    """Phase 9: the phase-3 index served from an mmap page store through a
+    bounded admission cache of ``num_pages // 10`` pages.  Launch counts
+    are zeroed just before and read just after the serve pass; every K1
+    launch must take the resident route (the pool's slot table); every
+    answer must equal ``naive_eval`` / ``rank_oracle`` and phase 5's fully
+    resident ``repair`` answers.  Then K1's largest resident launch of
+    each workload is held against its plain version on the same pool and
+    slot table, the pool's rows outside the launch's working set
+    poisoned, and timed beside the fully resident route and the
+    searchsorted yardstick ``lib`` on the same lanes.  Returns the run
+    and the held rows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.list_intersect import ops as K1
+    from repro_torch.serve import QueryServer
+    budget = max(1, num_pages // 10)
+    t0 = time.perf_counter()
+    srv = QueryServer(res, engine="cuda", device="cuda",
+                      batch_window=CONCURRENCY, codec="repair",
+                      store="mmap", resident_pages=budget)
+    t_up = time.perf_counter() - t0
+    store = srv.engine.store
+    print(f"[outofcore] QueryServer(engine='cuda', store='mmap', "
+          f"resident_pages={budget}) up in {t_up:.2f} s: "
+          f"{store.num_pages} pages x {store.page_size} symbols, "
+          f"{store.disk_bytes / 2**20:.2f} MiB on disk; on the card "
+          f"{srv.engine.pi.c_syms_pg.shape[0]}-row stream placeholders")
+    run = _serve(srv, queries, bags, lists, res.universe, wrappers)
+    k1 = run["launches"]["list_intersect"]
+    if k1 == 0 or run["slot_calls"]["list_intersect"] \
+            != len(run["shapes"]["list_intersect"]):
+        raise SystemExit(f"[outofcore] K1's resident route: {k1} launches, "
+                         f"{run['slot_calls']['list_intersect']} of "
+                         f"{len(run['shapes']['list_intersect'])} calls "
+                         f"through the slot table")
+    for got, want in zip(run["outs"], run5["outs"]):
+        if not np.array_equal(got, want):
+            raise SystemExit("[outofcore] a boolean answer differs from "
+                             "phase 5's fully resident one")
+    for got, want in zip(run["ranked"], run5["ranked"]):
+        if not (np.array_equal(got.docs, want.docs)
+                and np.array_equal(got.scores, want.scores)):
+            raise SystemExit("[outofcore] a ranked answer differs from "
+                             "phase 5's fully resident one")
+    st, rs = run["stats"], srv.engine.resident.stats()
+    lat_b, lat_r = run["lat_bool"], run["lat_rank"]
+    print(f"[outofcore] boolean: {len(queries)} queries at concurrency "
+          f"{CONCURRENCY} in {run['t_bool']:.3f} s "
+          f"({len(queries) / run['t_bool']:.1f} q/s), p50 "
+          f"{np.percentile(lat_b, 50):.2f} ms, p95 "
+          f"{np.percentile(lat_b, 95):.2f} ms; ranked top-{TOPK}: "
+          f"{len(bags)} queries in {run['t_rank']:.3f} s "
+          f"({len(bags) / run['t_rank']:.1f} q/s), p50 "
+          f"{np.percentile(lat_r, 50):.2f} ms, p95 "
+          f"{np.percentile(lat_r, 95):.2f} ms; every answer equal "
+          f"naive_eval / rank_oracle and phase 5's fully resident answers")
+    print(f"[outofcore] launches {run['launches']} (every K1 call through "
+          f"the slot table); K1 launch shapes (lanes) "
+          f"{run['shapes']['list_intersect']}")
+    print(f"[outofcore] ResidentSet.stats(): {json.dumps(rs)}")
+    print(f"[outofcore] scheduler: prefetched {st['prefetched_pages']} "
+          f"pages, {st['prefetch_useful']} useful (accuracy "
+          f"{st['prefetch_accuracy']:.3f}), gather "
+          f"{st['prefetch_gather_ms']:.1f} ms, join wait "
+          f"{st['prefetch_join_wait_ms']:.1f} ms, overlap "
+          f"{st['overlap_ms']:.1f} ms; pool_grows {rs['pool_grows']} (a "
+          f"tick whose working set exceeds the budget grows the pool)")
+
+    rows = []
+    for ph in ("ranked", "boolean"):
+        rec = run["by_phase"].get(("list_intersect", ph))
+        if rec is None:
+            continue
+        n, _, a, kw = rec
+        lanes, pool = a[:4], a[4]
+        ws = K1.probe_working_set(host1, a[0].cpu().numpy(),
+                                  a[1].cpu().numpy())
+        poisoned = K1.poison_outside(pool["c_syms_pg"], pool["c_sums_pg"],
+                                     kw["slot_of_page"], ws, seed=n)
+        out, row = _hold("list_intersect", K1.list_intersect,
+                         K1.list_intersect_plain, a, kw,
+                         lambda: k1_traffic(lanes, tables1, statics1,
+                                            page=store.page_size))
+        oracle = _oracle_next_geq(lists, a[0].cpu().numpy(),
+                                  a[1].cpu().numpy())
+        full = K1.list_intersect(*lanes, tables1, **statics1)
+        if not (np.array_equal(out.cpu().numpy(), oracle)
+                and torch.equal(out, full)):
+            raise SystemExit(f"[outofcore] K1's resident route disagrees "
+                             f"with the oracle or the fully resident route "
+                             f"on the largest {ph} launch")
+        full_ms = _device_ms(
+            lambda: K1.list_intersect(*lanes, tables1, **statics1), 100)[0]
+        full_bound = _bound(*k1_traffic(lanes, tables1, statics1))[0]
+        row = dict(batch=f"resident route: largest out-of-core serve launch "
+                   f"({ph} queries), pool of {pool['c_syms_pg'].shape[0]} "
+                   f"rows for {store.num_pages} pages, working set "
+                   f"{ws.size} pages, {poisoned} rows outside it poisoned",
+                   size=n, route="resident", launches=k1,
+                   fully_resident_ms=full_ms,
+                   fully_resident_bound_ms=full_bound,
+                   library_ms=_library(lib, a[0], a[1], out), **row)
+        _print_hold("list_intersect", row, "lanes",
+                    "plain (poisoned pool), oracle and the fully resident "
+                    "route")
+        print(f"[outofcore] the same lanes through the fully resident "
+              f"route: {full_ms:.5f} ms (bound {full_bound:.6f} ms)")
+        rows.append(row)
+    return dict(run=run, rows=rows, stats=rs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1639,6 +1791,14 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
               line for line in out if line.startswith(
                   ("torch builder", "12 bigram", "  lookup"))))
+
+    # 9. out-of-core: the phase-3 index from an mmap store at ~10% resident
+    ooc = _outofcore(res, lists, queries, bags, runs["repair"][1],
+                     eng.pi.num_pages, tables1, host1, statics1, wrappers,
+                     lib)
+    report[0]["shapes"].extend(ooc["rows"])
+    report[0]["max_abs_err"] = max(r["max_abs_err"]
+                                   for r in report[0]["shapes"])
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

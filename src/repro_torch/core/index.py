@@ -219,6 +219,13 @@ class PagedIndex:
       the page one past the final list;
     * ``bck_page, bck_off`` — the (b)-sampling bucket tables re-addressed
       as (page, offset) of the anchor symbol.
+
+    Out of core (DESIGN.md §11): when ``store`` is set, the stream pages
+    live behind that :class:`repro_torch.store.PageStore` and
+    ``c_syms_pg`` / ``c_sums_pg`` shrink to a ``(1, page_size)``
+    placeholder — consumers dispatch against a resident pool instead, and
+    ``num_pages`` reports the store's geometry.  The directory and bucket
+    tensors stay real (they are the RAM tier, per the paper).
     """
 
     flat: FlatIndex
@@ -229,10 +236,24 @@ class PagedIndex:
     bck_off: torch.Tensor      # per-bucket offset within the page
 
     page_size: int
+    #: optional PageStore that owns the stream pages
+    store: object = None
 
     @property
     def num_pages(self) -> int:
+        if self.store is not None:
+            return int(self.store.num_pages)
         return int(self.c_syms_pg.shape[0])
+
+
+def as_store_backed(pi: PagedIndex, store) -> PagedIndex:
+    """Swap a paged index's stream tensors for a placeholder and attach
+    the page store that now owns them — after this, a consumer that still
+    reads ``c_syms_pg`` / ``c_sums_pg`` directly sees shapes it cannot
+    miss."""
+    z = torch.zeros((1, pi.page_size), dtype=torch.int32,
+                    device=pi.c_syms_pg.device)
+    return dataclasses.replace(pi, c_syms_pg=z, c_sums_pg=z, store=store)
 
 
 def paged_index_arrays(arrays: dict[str, np.ndarray], page_size: int
@@ -285,16 +306,32 @@ def index_to_arrays(index: FlatIndex | PagedIndex
     return arrays, statics
 
 
-def build_paged_index(fi: FlatIndex,
-                      page_size: int = DEFAULT_PAGE) -> PagedIndex:
+def build_paged_index(fi: FlatIndex, page_size: int = DEFAULT_PAGE,
+                      store: "str | object | None" = None,
+                      store_dir: str | None = None) -> PagedIndex:
     """Reshape a flat index's stream into ``(num_pages, page_size)`` pages
     on the flat index's device and re-address the bucket tables as
-    (page, offset)."""
+    (page, offset).
+
+    ``store`` (explicit only — the engines resolve ``REPRO_STORE``)
+    additionally builds a page store from the freshly paged tensors and,
+    for disk-backed kinds, swaps the stream tensors for placeholders via
+    :func:`as_store_backed`."""
     arrays, statics = index_to_arrays(fi)
     paged, statics["page_size"] = paged_index_arrays(arrays, page_size)
-    return PagedIndex(flat=fi,
-                      **{k: _on(v, fi.device) for k, v in paged.items()},
-                      page_size=statics["page_size"])
+    pi = PagedIndex(flat=fi,
+                    **{k: _on(v, fi.device) for k, v in paged.items()},
+                    page_size=statics["page_size"])
+    if store is not None:
+        from ..store import PageStore, build_page_store
+        if not isinstance(store, PageStore):
+            store = build_page_store(None, kind=store, pi=pi,
+                                     store_dir=store_dir)
+        if store.kind != "memory":
+            pi = as_store_backed(pi, store)
+        else:
+            pi = dataclasses.replace(pi, store=store)
+    return pi
 
 
 # -- ranked scoring: BM25 tables + block-max page directory ------------------

@@ -29,6 +29,28 @@
 // * Grammar tables are read through the read-only data cache (__ldg);
 //   they are O(rules), small enough to stay resident in L2.
 // * Int32 sums wrap like XLA's int32 adds (done in unsigned arithmetic).
+//
+// Out of core, the same kernel reads the stream from the bounded pool of
+// the admission cache (ResidentSet) instead of the whole paged stream —
+// the route of src/repro/kernels/list_intersect/ops.py:244
+// next_geq_resident, where the TPU kernel's page BlockSpec reads the
+// pool row of each tile page from `tile_slots`.  Here it is one template
+// argument: kResident = true reads position `pos` as
+//     slot = max(slot_of_page[pos / page], 0)
+//     pool[slot * page + pos % page]
+// (integer division: the page is a multiple of 128, not a power of two),
+// and kResident = false compiles to the fully resident kernel unchanged.
+// A page outside the launch's working set has slot -1, clamped to row 0,
+// whose contents are arbitrary.  No lane's answer depends on such a read:
+// * a lane with x > last, or whose start state already answers
+//   (s0 >= x), returns before its first stream read (the second check is
+//   resident-only; on a real stream the first skip step would not take,
+//   so the fully resident kernel gives the same answer);
+// * any other lane (s0 < x, pos0 < end, x <= last) reads sums at
+//   pos0 .. pos0 + max_scan - 1 and at most one symbol at
+//   pos <= pos0 + max_scan, all before `end`: pages
+//   [pos0 / page, min((pos0 + max_scan) / page, end / page)], exactly the
+//   window the host router faults in (probe_working_set).
 
 #include <cuda_runtime.h>
 
@@ -42,6 +64,22 @@ __device__ __forceinline__ int wrap_add(int a, int b) {
                           static_cast<unsigned>(b));
 }
 
+// Position `pos` of the stream: the paged stream itself, or its pool row
+// through the slot table.
+template <bool kResident>
+__device__ __forceinline__ int stream_at(const int* __restrict__ stream,
+                                         const int* __restrict__ slot_of_page,
+                                         int page, int num_pages, int pos) {
+  if constexpr (kResident) {
+    const int pg = pos / page;
+    const int slot = max(__ldg(slot_of_page + min(pg, num_pages - 1)), 0);
+    return __ldg(stream + slot * page + (pos - pg * page));
+  } else {
+    return __ldg(stream + pos);
+  }
+}
+
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads)
 list_intersect_kernel(const int* __restrict__ lids,
                       const int* __restrict__ xs,
@@ -52,10 +90,12 @@ list_intersect_kernel(const int* __restrict__ lids,
                       const int* __restrict__ sym_left,
                       const int* __restrict__ sym_right,
                       const int* __restrict__ sym_sum,
-                      const int* __restrict__ c_syms,   // paged, flattened
-                      const int* __restrict__ c_sums,   // paged, flattened
+                      const int* __restrict__ c_syms,   // paged or pool
+                      const int* __restrict__ c_sums,   // paged or pool
+                      const int* __restrict__ slot_of_page,
                       int* __restrict__ out, int q, int max_scan,
-                      int max_depth, int num_terminals) {
+                      int max_depth, int num_terminals, int page,
+                      int num_pages) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= q) return;
   const int lid = lids[i];
@@ -67,10 +107,15 @@ list_intersect_kernel(const int* __restrict__ lids,
   const int end = __ldg(starts + lid + 1);
   int pos = pos0[i];
   int s = s0[i];
+  if (kResident && s >= x) {             // answered by the start state,
+    out[i] = s;                          // before any stream read
+    return;
+  }
 
   // phrase-sum skipping: at most max_scan steps while s + sum < x
   for (int k = 0; k < max_scan && pos < end; ++k) {
-    const int ps = __ldg(c_sums + pos);
+    const int ps = stream_at<kResident>(c_sums, slot_of_page, page,
+                                        num_pages, pos);
     const int t = wrap_add(s, ps);
     if (!(t < x)) break;
     s = t;
@@ -86,7 +131,7 @@ list_intersect_kernel(const int* __restrict__ lids,
   }
 
   // fixed-depth descent inside the halting phrase
-  int sym = __ldg(c_syms + pos);
+  int sym = stream_at<kResident>(c_syms, slot_of_page, page, num_pages, pos);
   for (int d = 0; d < max_depth && sym >= num_terminals; ++d) {
     const int left = __ldg(sym_left + sym);
     const int ls = __ldg(sym_sum + left);
@@ -102,18 +147,30 @@ list_intersect_kernel(const int* __restrict__ lids,
 
 }  // namespace
 
+// slot_of_page == nullptr: the fully resident route over the paged
+// stream; otherwise c_syms_pg / c_sums_pg are the resident pool's
+// (budget, page) rows and slot_of_page its (num_pages,) table.
 extern "C" int list_intersect_launch(
     const int* lids, const int* xs, const int* pos0, const int* s0,
     const int* starts, const int* lasts, const int* sym_left,
     const int* sym_right, const int* sym_sum, const int* c_syms_pg,
-    const int* c_sums_pg, int* out, int q, int max_scan, int max_depth,
-    int num_terminals, void* stream) {
+    const int* c_sums_pg, const int* slot_of_page, int* out, int q,
+    int max_scan, int max_depth, int num_terminals, int page, int num_pages,
+    void* stream) {
   if (q <= 0) return 0;
   const int blocks = (q + kThreads - 1) / kThreads;
-  list_intersect_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      lids, xs, pos0, s0, starts, lasts, sym_left, sym_right, sym_sum,
-      c_syms_pg, c_sums_pg, out, q, max_scan, max_depth, num_terminals);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (slot_of_page == nullptr) {
+    list_intersect_kernel<false><<<blocks, kThreads, 0, st>>>(
+        lids, xs, pos0, s0, starts, lasts, sym_left, sym_right, sym_sum,
+        c_syms_pg, c_sums_pg, nullptr, out, q, max_scan, max_depth,
+        num_terminals, page, num_pages);
+  } else {
+    list_intersect_kernel<true><<<blocks, kThreads, 0, st>>>(
+        lids, xs, pos0, s0, starts, lasts, sym_left, sym_right, sym_sum,
+        c_syms_pg, c_sums_pg, slot_of_page, out, q, max_scan, max_depth,
+        num_terminals, page, num_pages);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,9 +39,12 @@ round's lanes by codec and dispatch every sub-round through that codec's
 alone.  The Re-Pair structures remain the decode ground truth in every
 mode, so results are identical across assignments.
 
-The JAX package's out-of-core page store is not part of this package
-yet: an engine accepts only ``store`` None (and no ``REPRO_STORE``) and
-raises ``NotImplementedError`` on anything else.
+**Out-of-core tier** (DESIGN.md §11): constructed with ``store``
+(``"memory"`` / ``"mmap"``, or None to honour ``REPRO_STORE``) the
+engine serves the compressed stream from a page store through a bounded
+admission cache (``resident_pages``, or ``REPRO_RESIDENT_PAGES``), the
+:class:`~repro_torch.store.ResidentSet`; the grammar, span directory and
+bucket tables stay in memory, as the paper splits them.
 """
 
 from __future__ import annotations
@@ -59,6 +62,8 @@ from ..core.index import (DEFAULT_PAGE, INT_INF, ScoreIndex,
 from ..core.repair import RePairResult
 from ..index.codec_tier import (CODEC_BITMAP, CODEC_NAMES, bitmap_member_np,
                                 bitmap_next_geq_np, build_codec_tier)
+from ..store import (PageStore, ResidentSet, build_page_store,
+                     pages_in_spans, resolve_store_kind)
 
 #: entry bound of the per-engine decoded-list LRU (env override
 #: ``REPRO_DECODE_CACHE``; 0 disables caching)
@@ -82,17 +87,6 @@ def _env_flag(name: str, default: bool = True) -> bool:
 DEDUP_ENABLED = _env_flag("REPRO_DEDUP", True)
 
 
-def _refuse_store(store) -> None:
-    """Refuse the page store (and its environment default
-    ``REPRO_STORE``), which this package does not implement yet — never
-    ignore it silently."""
-    kind = store if store is not None else os.environ.get("REPRO_STORE", "")
-    if str(kind).strip().lower() not in ("", "none", "off", "0"):
-        raise NotImplementedError(
-            f"page store {kind!r}: the out-of-core tier is not ported "
-            f"(roadmap item 9)")
-
-
 class Engine(abc.ABC):
     """Backend-pluggable query engine over one Re-Pair compressed index."""
 
@@ -104,17 +98,22 @@ class Engine(abc.ABC):
     #: them as new decodes land.
     index_version: int = 0
 
-    #: the page store is not ported: always None (the scheduler reads
-    #: these attributes)
-    resident = None
-    store = None
-
     def __init__(self, res: RePairResult,
                  codec: "str | object | None" = None,
-                 store: str | None = None):
-        _refuse_store(store)
+                 store: "str | object | None" = None,
+                 resident_pages: int | None = None):
         self.res = res
         self.lengths = np.asarray(res.orig_lengths, dtype=np.int64)
+        # out-of-core tier: ``store`` picks the page-store backend (None
+        # defers to REPRO_STORE; ""/none disables; a prebuilt PageStore
+        # passes through), and ``resident_pages`` bounds the admission
+        # cache (None defers to REPRO_RESIDENT_PAGES).  Construction is
+        # deferred to ``_init_store`` / the device engines'
+        # ``_attach_store``, once the paged geometry exists.
+        self.store = None
+        self.resident = None
+        self._resident_pages = resident_pages
+        self._store_kind = resolve_store_kind(store)
         self._decoded = LRUCache(DECODE_CACHE_SIZE)
         self._score_index: ScoreIndex | None = None
         # per-list codec tier: None in pure-repair mode; a prebuilt
@@ -212,6 +211,91 @@ class Engine(abc.ABC):
             out[m] = np.where(hit, arr[np.minimum(pos, arr.size - 1)],
                               int(INT_INF))
         return out.astype(np.int32)
+
+    # -- out-of-core storage (DESIGN.md §11) ---------------------------------
+
+    def _init_store(self, page_size: int | None = None) -> None:
+        """Materialize the requested page store + admission cache, paged at
+        ``page_size`` (the host engine's; the device engines page their
+        own index and attach it in ``_attach_store``)."""
+        if self._store_kind is None:
+            return
+        kind = self._store_kind
+        self.store = (kind if isinstance(kind, PageStore) else
+                      build_page_store(self.res, kind=kind,
+                                       page_size=page_size))
+        self.resident = ResidentSet(self.store, budget=self._resident_pages)
+
+    def prefault(self, probes=(), score_entries=None) -> None:
+        """Fault the union page working set of one tick's merged rounds in
+        a single batched gather.  ``probes`` is an iterable of
+        ``(list_ids, xs)`` rounds; ``score_entries`` the tick's merged
+        ScoreRound lanes.  No-op without a store — and purely an
+        optimization with one: every dispatch path re-ensures its own
+        working set, prefaulting just coalesces the tick's misses into one
+        ``store.gather``."""
+        if self.resident is None:
+            return
+        pages = self.working_set(probes, score_entries)
+        if pages.size:
+            self.resident.ensure(pages)
+
+    def working_set(self, probes=(), score_entries=None) -> np.ndarray:
+        """The union page working set of one tick's merged rounds —
+        ``prefault``'s page computation, reused by the scheduler's
+        overlapped-prefetch predictor."""
+        if self.resident is None:
+            return np.empty(0, np.int64)
+        groups = []
+        for lids, xq in probes:
+            lids = np.asarray(lids, np.int64).ravel()
+            xq = np.asarray(xq, np.int64).ravel()
+            if self.tier is not None and lids.size:
+                m = self.tier.codec[lids] == 0   # only Re-Pair lanes
+                lids, xq = lids[m], xq[m]        # touch the stream pool
+            if lids.size:
+                groups.append(self._probe_pages(lids, xq))
+        if score_entries is not None:
+            e = np.asarray(score_entries, np.int64).ravel()
+            if e.size:
+                groups.append(self._score_pages(e))
+        groups = [g for g in groups if g.size]
+        if not groups:
+            return np.empty(0, np.int64)
+        return np.unique(np.concatenate(groups))
+
+    def span_pages(self, term_ids) -> np.ndarray:
+        """Pages covering the FULL stream spans of ``term_ids`` — the
+        prefetch predictor's superset for queries whose next probe values
+        aren't known yet.  Non-repair lanes never touch the stream pool,
+        so tiered engines keep only repair-coded lists."""
+        if self.resident is None:
+            return np.empty(0, np.int64)
+        u = np.unique(np.asarray(list(term_ids), np.int64).ravel())
+        u = u[(u >= 0) & (u < self.lengths.size)]
+        if self.tier is not None and u.size:
+            u = u[self.tier.codec[u] == 0]
+        if u.size == 0:
+            return np.empty(0, np.int64)
+        starts = self.store.meta["starts"]
+        return pages_in_spans(starts[u], starts[u + 1],
+                              self.store.page_size)
+
+    def _probe_pages(self, lids: np.ndarray, xq: np.ndarray) -> np.ndarray:
+        """Pages one merged probe round can touch.  Host granularity is
+        the full list span (the accessors materialize spans — the paper's
+        contiguous-block unit); device engines override with the router's
+        per-lane skip windows."""
+        starts = self.store.meta["starts"]
+        u = np.unique(lids)
+        return pages_in_spans(starts[u], starts[u + 1],
+                              self.store.page_size)
+
+    def _score_pages(self, entries: np.ndarray) -> np.ndarray:
+        """Pages one merged ScoreRound decode can touch."""
+        si = self.score_index
+        return pages_in_spans(si.pg_sym_lo[entries], si.pg_sym_hi[entries],
+                              self.store.page_size)
 
     # -- merged probe rounds -------------------------------------------------
 

@@ -14,6 +14,16 @@ plain PyTorch programs, as ``PallasEngine`` reuses jnp for them.  The
 paged index and the kernels' operand packs are built once per index and
 reused for every launch.
 
+Out of core (``store=``), the engine follows ``PallasEngine``: it packs
+only the five RAM-tier tables of K1, attaches the store, and every
+Re-Pair probe runs K1's resident route — the stream read from the
+admission cache's pool through its page -> slot table
+(``next_geq_resident``).  As in ``PallasEngine``, K2 has no pool route:
+ranked page decodes take the windowed resident decode of the plain
+PyTorch program (``torch_backend.decode_pages_resident``) on the
+engine's device.  That is the reference's design, not a fallback; K2
+itself is unchanged.
+
 On a CUDA device the kernels launch or raise; with ``device="cpu"`` the
 wrappers run the kernels' plain versions, which is how the CPU tests hold
 this engine to the JAX package.
@@ -43,8 +53,14 @@ class CudaEngine(DeviceEngine):
                          **kwargs)
         self.pi = pi if pi is not None else build_paged_index(self.fi,
                                                               page_size)
+        # out of core the stream pages stay in the pool and enter each
+        # launch through the slot table: pack the RAM tier only
+        store = self._wants_store()
         self._tables, self._statics, self._host = K.pad_paged_operands(
-            self.pi)
+            self.pi, include_stream=not store)
+        if store:
+            # one routing snapshot routes K1's lanes and faults their pages
+            self.pi = self._attach_store(self.pi, route_host=self._host)
         self._score_pack = None   # page_score operands, first ranked query
 
     # -- ranked scoring -----------------------------------------------------
@@ -58,7 +74,10 @@ class CudaEngine(DeviceEngine):
     def decode_page_batch(self, entries) -> np.ndarray:
         """Page entries decode in one ``page_score`` launch.  The score
         directory is always cut at this engine's page boundaries
-        (``_score_page_size``), so every entry lies in one stream page."""
+        (``_score_page_size``), so every entry lies in one stream page.
+        Out of core the windowed resident decode runs instead."""
+        if self.resident is not None:
+            return super().decode_page_batch(entries)
         si = self.score_index
         if self._score_pack is None:
             self._score_pack = PS.pad_score_operands(self.pi)
@@ -75,6 +94,13 @@ class CudaEngine(DeviceEngine):
         return K.next_geq_paged(self._tables, self._host,
                                 np.asarray(list_ids), np.asarray(xs),
                                 **self._statics)
+
+    def _next_geq_resident(self, lids, xs) -> np.ndarray:
+        """K1's resident route: the router's lanes, the pool's device
+        mirror and its slot table."""
+        return K.next_geq_resident(self._tables, self._host, self.resident,
+                                   np.asarray(lids), np.asarray(xs),
+                                   **self._statics)
 
     # -- codec tier ---------------------------------------------------------
 

@@ -15,22 +15,33 @@ interchangeable anywhere and agree bit-exactly.
 Every tensor lives on the engine's ``device``, which defaults to
 ``"cuda"``; ``device="cpu"`` runs the same programs on the CPU (the
 tests do).  Asking for CUDA without a card raises.
+
+**Out of core** (DESIGN.md §11): with a ``store``, the paged stream goes
+behind a page store and the engine keeps only the RAM tier (grammar,
+span directory, buckets) on the device; every stream read — probes,
+expansions, page decodes — goes through the bounded resident pool of a
+:class:`~repro_torch.store.ResidentSet`, whose working set is faulted in
+before each dispatch.  The port's device engines have no host fallback
+(every pair runs on the device), so the pool has no second user.
 """
 
 from __future__ import annotations
 
 import abc
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from ..core.index import (FlatIndex, PagedIndex, build_flat_index,
-                          build_paged_index, DEFAULT_PAGE)
+from ..core.index import (FlatIndex, PagedIndex, as_store_backed,
+                          build_flat_index, build_paged_index, DEFAULT_PAGE)
 from ..core import ef as EF
 from ..core.repair import RePairResult
 from ..index import codec_tier as CT
 from ..kernels import resolve_device
+from ..kernels.list_intersect import ops as K
+from ..store import PageStore, ResidentSet, build_page_store, pages_in_spans
 from .base import Engine
 from . import torch_backend as J
 
@@ -45,9 +56,10 @@ class DeviceEngine(Engine):
 
     def __init__(self, res: RePairResult, fi: FlatIndex | None = None,
                  max_short_len: int = 256, B: int = 8, device="cuda",
-                 codec=None, store=None):
+                 codec=None, store=None, resident_pages=None):
         device = resolve_device(device)   # no card: raise before any build
-        super().__init__(res, codec=codec, store=store)
+        super().__init__(res, codec=codec, store=store,
+                         resident_pages=resident_pages)
         self.device = device
         self.fi = fi if fi is not None else build_flat_index(
             res, B=B, device=self.device)
@@ -56,6 +68,54 @@ class DeviceEngine(Engine):
                              f"engine on {self.device}")
         self.max_short_len = max_short_len
         self._bys_incl = None   # [BY04] prefix table, built on first bys
+        self._route_host = None  # routing snapshot, set by _attach_store
+
+    # -- out-of-core store attach (DESIGN.md §11) ---------------------------
+
+    def _wants_store(self) -> bool:
+        return self._store_kind is not None
+
+    def _attach_store(self, pi: PagedIndex,
+                      route_host: dict | None = None) -> PagedIndex:
+        """Put a just-built paged index behind the admission cache: build
+        (or adopt) the PageStore from the index's own pages, replace the
+        stream tensors with placeholders (``as_store_backed``) and the flat
+        stream ``c`` with one element, so the device never holds the whole
+        stream, and keep one host routing snapshot (``route_host`` when
+        the caller already took it, else a fresh one) — the directories,
+        buckets and grammar the paper keeps in RAM.  Returns ``pi``
+        unchanged when no store was requested."""
+        if not self._wants_store():
+            return pi
+        if pi.store is not None:
+            self.store = pi.store
+        elif isinstance(self._store_kind, PageStore):
+            self.store = self._store_kind
+        else:
+            self.store = build_page_store(self.res, kind=self._store_kind,
+                                          pi=pi)
+        self.resident = ResidentSet(self.store, budget=self._resident_pages)
+        if int(self.store.page_size) != int(pi.page_size):
+            raise ValueError(
+                "page store geometry mismatch: store page_size "
+                f"{self.store.page_size} != index {pi.page_size}")
+        slim = dataclasses.replace(
+            self.fi, c=torch.zeros(1, dtype=torch.int32, device=self.device))
+        self.fi = slim
+        pi = as_store_backed(dataclasses.replace(pi, flat=slim), self.store)
+        self._route_host = (route_host if route_host is not None
+                            else K.routing_snapshot(pi))
+        return pi
+
+    def _pool(self):
+        """The resident pool's device mirror (syms, sums, slot table)."""
+        return self.resident.device_tables(self.device)
+
+    def _probe_pages(self, lids: np.ndarray, xq: np.ndarray) -> np.ndarray:
+        """Working set of a probe round = exactly the pages the router
+        windows (``probe_working_set``), so a prefault batch faults
+        nothing a dispatch would not."""
+        return K.probe_working_set(self._route_host, lids, xq)
 
     def _tensor(self, a) -> torch.Tensor:
         """numpy -> int32 tensor on the engine's device."""
@@ -106,14 +166,33 @@ class DeviceEngine(Engine):
 
     def _next_geq_repair(self, list_ids: np.ndarray,
                          xs: np.ndarray) -> np.ndarray:
-        return np.asarray(self._next_geq_dev(np.asarray(list_ids, np.int32),
-                                             np.asarray(xs, np.int32)))
+        lids = np.asarray(list_ids, np.int32)
+        xq = np.asarray(xs, np.int32)
+        if self.resident is not None:
+            return np.asarray(self._next_geq_resident(lids, xq))
+        return np.asarray(self._next_geq_dev(lids, xq))
+
+    def _next_geq_resident(self, lids: np.ndarray,
+                           xq: np.ndarray) -> np.ndarray:
+        """Resident-pool probe: fault the round's working set (a no-op
+        when the scheduler already prefaulted it), then run the
+        slot-indexed paged program against the bounded pool."""
+        self.resident.ensure(K.probe_working_set(self._route_host, lids, xq))
+        ps, pu, st = self._pool()
+        return J.next_geq_batch_resident(
+            self.pi, ps, pu, st, self._tensor(lids),
+            self._tensor(xq)).cpu().numpy()
 
     def _next_geq_repair_bys(self, list_ids: np.ndarray,
                              xs: np.ndarray) -> np.ndarray:
         """Device binary-search path: bisect the span's phrase-sum prefix
         table, then one grammar descent
-        (``torch_backend.next_geq_bys_batch``)."""
+        (``torch_backend.next_geq_bys_batch``).  Out of core it delegates
+        to the resident probe path: the prefix table is another O(N)
+        whole-stream array, which is what the bounded pool exists to
+        avoid, and the next_geq contract is the same."""
+        if self.resident is not None:
+            return self._next_geq_repair(list_ids, xs)
         if self._bys_incl is None:
             self._bys_incl = J.build_bys_table(self.fi)
         return J.next_geq_bys_batch(
@@ -149,8 +228,9 @@ class DeviceEngine(Engine):
         """(B,) ids × (B, M) probes with per-list codec routing: without a
         tier the backend's ``_probe_dev`` runs; with one the lanes flatten
         through ``next_geq_batch`` so EF and bitmap lists probe their own
-        stores (the values are identical either way)."""
-        if self.tier is None:
+        stores (the values are identical either way).  Out of core the
+        lanes flatten too, so they take the resident probe path."""
+        if self.tier is None and self.resident is None:
             return self._probe_dev(long_ids, mat)
         B, M = np.shape(mat)
         flat_ids = np.repeat(np.asarray(long_ids, np.int32), M)
@@ -159,8 +239,21 @@ class DeviceEngine(Engine):
         return np.asarray(vals).reshape(B, M)
 
     def _expand(self, ids, max_len: int) -> torch.Tensor:
-        """Batched list expansion on the device: (B,) ids -> (B, max_len)."""
-        return J.expand_batch(self.fi, self._tensor(ids), max_len)
+        """Batched list expansion on the device: (B,) ids -> (B, max_len).
+        Out of core it reads the resident pool: ``max_len`` bounds the
+        symbol window read per list, so only the pages covering
+        ``[starts[i], starts[i] + max_len)`` (clipped to the span) are
+        faulted."""
+        if self.resident is None:
+            return J.expand_batch(self.fi, self._tensor(ids), max_len)
+        idx = np.asarray(ids, np.int64).ravel()
+        starts = self._route_host["starts"]
+        lo = starts[idx]
+        hi = np.minimum(starts[idx + 1], lo + max_len)
+        self.resident.ensure(pages_in_spans(lo, hi, self.pi.page_size))
+        ps, pu, st = self._pool()
+        return J.expand_batch_resident(self.pi, ps, pu, st,
+                                       self._tensor(idx), max_len)
 
     def _expand_rows(self, i: int) -> torch.Tensor:
         """All of list ``i`` expanded on the device and cut into rows of
@@ -256,14 +349,20 @@ class DeviceEngine(Engine):
         """Device page-entry decode: gather each entry's (symbol range,
         base, head) row from the directory and run the windowed positional
         descent (``torch_backend.decode_pages_batch``) — O(page) work per
-        lane regardless of list length, the block-max pruning payoff."""
+        lane regardless of list length, the block-max pruning payoff.  Out
+        of core the entries' pages are faulted and the same decode reads
+        the resident pool (``decode_pages_resident``)."""
         si = self.score_index
         e = np.asarray(entries, np.int64).ravel()
-        out = J.decode_pages_batch(
-            self.fi, self._tensor(si.pg_sym_lo[e]),
-            self._tensor(si.pg_sym_hi[e]), self._tensor(si.pg_base[e]),
-            self._tensor(si.pg_head[e]), win=int(si.page_size),
-            max_elems=self.page_elem_bucket())
+        args = (self._tensor(si.pg_sym_lo[e]), self._tensor(si.pg_sym_hi[e]),
+                self._tensor(si.pg_base[e]), self._tensor(si.pg_head[e]))
+        kw = dict(win=int(si.page_size), max_elems=self.page_elem_bucket())
+        if self.resident is None:
+            out = J.decode_pages_batch(self.fi, *args, **kw)
+        else:
+            self.resident.ensure(pages_in_spans(
+                si.pg_sym_lo[e], si.pg_sym_hi[e], self.pi.page_size))
+            out = J.decode_pages_resident(self.pi, *self._pool(), *args, **kw)
         return out.cpu().numpy()
 
     def score_batch(self, doc_ids: np.ndarray, terms) -> np.ndarray:
@@ -293,7 +392,9 @@ class DeviceEngine(Engine):
 class TorchEngine(DeviceEngine):
     """Plain PyTorch fixed-trip-count programs (the kernels' bit-exact
     reference).  ``paged=True`` routes probes through the paged-addressing
-    mirror over a :class:`PagedIndex` — same values, page-local reads."""
+    mirror over a :class:`PagedIndex` — same values, page-local reads.  A
+    store implies paged addressing: the admission cache's unit is the
+    stream page, so the flat layout has no out-of-core form."""
 
     name = "torch"
 
@@ -304,7 +405,10 @@ class TorchEngine(DeviceEngine):
         super().__init__(res, fi=fi, max_short_len=max_short_len, B=B,
                          **kwargs)
         self.pi = pi if pi is not None else (
-            build_paged_index(self.fi, page_size) if paged else None)
+            build_paged_index(self.fi, page_size)
+            if (paged or self._wants_store()) else None)
+        if self.pi is not None:
+            self.pi = self._attach_store(self.pi)
 
     def _next_geq_dev(self, list_ids, xs) -> np.ndarray:
         lids, xq = self._tensor(list_ids), self._tensor(xs)

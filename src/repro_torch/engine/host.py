@@ -20,6 +20,7 @@ from ..core.index import INT_INF
 from ..core.repair import RePairResult
 from ..core.sampling import (ASampling, BSampling, build_a_sampling,
                              build_b_sampling)
+from ..store import StoreResView
 from .base import DECODE_CACHE_SIZE, Engine
 
 
@@ -28,8 +29,10 @@ class HostEngine(Engine):
 
     def __init__(self, res: RePairResult, method: str = "lookup",
                  search: str = "exp", k: int = 8, B: int = 8,
-                 codec=None, store=None):
-        super().__init__(res, codec=codec, store=store)
+                 codec=None, store=None, resident_pages=None,
+                 page_size: int | None = None):
+        super().__init__(res, codec=codec, store=store,
+                         resident_pages=resident_pages)
         if method not in ("skip", "svs", "lookup"):
             raise ValueError(f"unknown host method {method!r}")
         self.method = method
@@ -41,7 +44,15 @@ class HostEngine(Engine):
         # bounded like the decode cache: merged serving rounds touch the
         # whole Zipf head, and accessors hold O(span) decoded state
         self._accs = LRUCache(DECODE_CACHE_SIZE)
-        self._qres = res
+        # out-of-core: the accessors read list symbols through a
+        # RePairResult-shaped store view, so the paper's RAM/disk split
+        # holds on the host tier too — grammar and samplings in RAM,
+        # stream spans faulted through the admission cache; page_size
+        # sets the store's fault granularity (None = the REPRO_PAGE_SIZE
+        # default — a host store has no kernel geometry to match)
+        self._init_store(page_size=page_size)
+        self._qres = (res if self.resident is None
+                      else StoreResView(res, self.resident))
 
     def _acc(self, i: int) -> I.CompressedList:
         if self.method == "svs":

@@ -86,7 +86,15 @@ def skip_descend(tables, *, T: int, max_scan: int, max_depth: int,
     ``tables`` maps ``starts``, ``lasts`` and the grammar tables
     (``sym_left``, ``sym_right``, ``sym_sum``) to tensors;
     ``read_sym``/``read_sum`` read the stream at absolute positions —
-    reads outside a lane's span are clamped and their values discarded."""
+    reads outside a lane's span are clamped and their values discarded.
+
+    A lane whose value the final selects decide (``s >= x`` from the
+    start, past the span, ``x`` beyond the list) neither skips nor
+    descends from what it read: on a real stream a read phrase sum is
+    positive and ``s + sum`` stays a list value, so these guards change
+    no answer, and through a resident pool they make the answer
+    independent of the rows outside the probes' working set, whatever
+    those hold."""
     lid = _i64(list_ids)
     end = tables["starts"][lid + 1]
     last = tables["lasts"][lid]
@@ -94,13 +102,15 @@ def skip_descend(tables, *, T: int, max_scan: int, max_depth: int,
     for _ in range(max_scan):
         in_range = pos < end
         ps = torch.where(in_range, read_sum(pos), 0)
-        take = in_range & (s + ps < xs)
+        take = in_range & (s < xs) & (s + ps < xs)
         pos = pos + take.to(torch.int32)
         s = torch.where(take, s + ps, s)
     done_early = s >= xs
     past_end = pos >= end
+    live = ~done_early & ~past_end & (xs <= last)
+    sym0 = torch.where(live, read_sym(pos), 0)
     sym_f, s_f = descend_value(tables["sym_left"], tables["sym_right"], ssum,
-                               T, max_depth, read_sym(pos), s, xs)
+                               T, max_depth, sym0, s, xs)
     answer = s_f + ssum[_i64(sym_f)]
     out = torch.where(done_early, s, answer)
     out = torch.where(past_end & ~done_early, _INF, out)
@@ -135,6 +145,13 @@ def _clamped(table: torch.Tensor):
     return lambda p: table[_i64(p.clamp(0, last))]
 
 
+def _flat_readers(fi: FlatIndex):
+    """Stream readers over the flat stream ``fi.c``: the symbol, and its
+    phrase sum from the grammar."""
+    read_sym = _clamped(fi.c)
+    return read_sym, lambda p: fi.sym_sum[_i64(read_sym(p))]
+
+
 def paged_readers(c_syms_pg: torch.Tensor, c_sums_pg: torch.Tensor):
     """Stream readers over the paged tables: position ``p`` is row
     ``p // PAGE``, column ``p % PAGE`` — the flattened table at ``p``."""
@@ -147,20 +164,55 @@ def next_geq_batch(fi: FlatIndex, list_ids: torch.Tensor,
     """(Q,) list ids × (Q,) probes -> (Q,) smallest element >= x (INT_INF)."""
     pos, s = _bucket_start(fi, lambda idx, start: start + fi.bck_c_pos[idx],
                            list_ids, xs)
-    read_sym = _clamped(fi.c)
+    read_sym, read_sum = _flat_readers(fi)
     return skip_descend(vars(fi), **_statics(fi), read_sym=read_sym,
-                        read_sum=lambda p: fi.sym_sum[_i64(read_sym(p))],
-                        list_ids=list_ids, xs=xs, pos=pos, s=s)
+                        read_sum=read_sum, list_ids=list_ids, xs=xs, pos=pos,
+                        s=s)
+
+
+def resident_readers(pool_syms: torch.Tensor, pool_sums: torch.Tensor,
+                     slot_tab: torch.Tensor, page: int):
+    """Stream readers through a resident pool: position ``p`` lies in page
+    ``p // page``, which ``slot_tab`` (``(num_pages,)``, -1 = absent) maps
+    to a pool row; an absent page is clamped to row 0, as in the JAX
+    package's ``_pool_read``."""
+    last = int(slot_tab.shape[0]) * page - 1
+    syms, sums = pool_syms.reshape(-1), pool_sums.reshape(-1)
+
+    def at(p):
+        p = _i64(p.clamp(0, last))
+        return _i64(slot_tab[p // page].clamp(min=0)) * page + p % page
+
+    return (lambda p: syms[at(p)]), (lambda p: sums[at(p)])
+
+
+def _paged_start(pi: PagedIndex, list_ids, xs):
+    return _bucket_start(
+        pi.flat, lambda idx, start: pi.bck_page[idx] * pi.page_size
+        + pi.bck_off[idx], list_ids, xs)
 
 
 def next_geq_batch_paged(pi: PagedIndex, list_ids: torch.Tensor,
                          xs: torch.Tensor) -> torch.Tensor:
     """Paged twin of :func:`next_geq_batch`: anchors come as (page,
     offset), stream reads go through the paged tables."""
-    pos, s = _bucket_start(
-        pi.flat, lambda idx, start: pi.bck_page[idx] * pi.page_size
-        + pi.bck_off[idx], list_ids, xs)
+    pos, s = _paged_start(pi, list_ids, xs)
     read_sym, read_sum = paged_readers(pi.c_syms_pg, pi.c_sums_pg)
+    return skip_descend(vars(pi.flat), **_statics(pi.flat),
+                        read_sym=read_sym, read_sum=read_sum,
+                        list_ids=list_ids, xs=xs, pos=pos, s=s)
+
+
+def next_geq_batch_resident(pi: PagedIndex, pool_syms: torch.Tensor,
+                            pool_sums: torch.Tensor, slot_tab: torch.Tensor,
+                            list_ids: torch.Tensor,
+                            xs: torch.Tensor) -> torch.Tensor:
+    """Out-of-core twin of :func:`next_geq_batch_paged`: the stream is read
+    through the resident pool.  Exact when the probes' working set is
+    resident (the engine faults it in first)."""
+    pos, s = _paged_start(pi, list_ids, xs)
+    read_sym, read_sum = resident_readers(pool_syms, pool_sums, slot_tab,
+                                          pi.page_size)
     return skip_descend(vars(pi.flat), **_statics(pi.flat),
                         read_sym=read_sym, read_sum=read_sum,
                         list_ids=list_ids, xs=xs, pos=pos, s=s)
@@ -236,17 +288,18 @@ def next_geq_bys_batch(fi: FlatIndex, incl: torch.Tensor,
     return torch.where(xs > last, _INF, out)     # when the span is empty)
 
 
-def _window_prefix(fi: FlatIndex, lo: torch.Tensor, hi: torch.Tensor,
-                   base: torch.Tensor, win: int):
+def _window_prefix(fi: FlatIndex, readers, lo: torch.Tensor,
+                   hi: torch.Tensor, base: torch.Tensor, win: int):
     """Symbols of the stream windows ``[lo, lo + win)`` masked to
     ``[lo, hi)``, with int32 running element counts and running absolute
-    values (from ``base``) after each symbol."""
+    values (from ``base``) after each symbol.  ``readers`` are the
+    ``(read_sym, read_sum)`` pair of the stream's layout."""
+    read_sym, read_sum = readers
     idx = lo[:, None] + _arange(win, lo)[None, :]
     valid = idx < hi[:, None]
-    syms = torch.where(valid, _clamped(fi.c)(idx), 0)
-    si = _i64(syms)
-    lens = torch.where(valid, fi.sym_len[si], 0)
-    sums = torch.where(valid, fi.sym_sum[si], 0)
+    syms = torch.where(valid, read_sym(idx), 0)
+    lens = torch.where(valid, fi.sym_len[_i64(syms)], 0)
+    sums = torch.where(valid, read_sum(idx), 0)
     cum_len = torch.cumsum(lens, 1, dtype=torch.int32)
     cum_sum = torch.cumsum(sums, 1, dtype=torch.int32) + base[:, None]
     return syms, cum_len, cum_sum
@@ -269,15 +322,16 @@ def _locate(fi: FlatIndex, syms, cum_len, cum_sum, base, w, win: int):
 
 
 def expand_batch(fi: FlatIndex, list_ids: torch.Tensor,
-                 max_len: int) -> torch.Tensor:
+                 max_len: int, readers=None) -> torch.Tensor:
     """Batched full-list expansion: list -> (max_len,) absolute ids padded
     with INT_INF, by pointer-free positional descent (output slot t finds
-    the t-th element by walking the grammar with per-node lengths)."""
+    the t-th element by walking the grammar with per-node lengths).
+    ``readers`` (default: the flat stream) read the stream."""
     lid = _i64(list_ids)
     first = fi.firsts[lid]
-    syms, cum_len, cum_sum = _window_prefix(fi, fi.starts[lid],
-                                            fi.starts[lid + 1], first,
-                                            max_len)
+    syms, cum_len, cum_sum = _window_prefix(
+        fi, readers or _flat_readers(fi), fi.starts[lid],
+        fi.starts[lid + 1], first, max_len)
     t = _arange(max_len, first, 1)[None, :].expand(lid.shape[0], -1)
     vals = _locate(fi, syms, cum_len, cum_sum, first, t.contiguous(),
                    max_len)
@@ -290,13 +344,15 @@ def expand_batch(fi: FlatIndex, list_ids: torch.Tensor,
 def decode_pages_batch(fi: FlatIndex, sym_lo: torch.Tensor,
                        sym_hi: torch.Tensor, base: torch.Tensor,
                        head: torch.Tensor, *, win: int,
-                       max_elems: int) -> torch.Tensor:
+                       max_elems: int, readers=None) -> torch.Tensor:
     """Batched block-max page-entry decode: each lane expands ONE entry of
     the score directory — the stream symbols ``[sym_lo, sym_hi)`` of one
     page — to absolute doc ids from the entry's running ``base``.  ``head``
     = 1 emits the list head (``base`` itself) in slot 0 before the gap
-    elements.  Output (Q, max_elems) int32, INT_INF padded."""
-    syms, cum_len, cum_sum = _window_prefix(fi, sym_lo, sym_hi, base, win)
+    elements.  Output (Q, max_elems) int32, INT_INF padded.  ``readers``
+    (default: the flat stream) read the stream."""
+    syms, cum_len, cum_sum = _window_prefix(
+        fi, readers or _flat_readers(fi), sym_lo, sym_hi, base, win)
     total = head + cum_len[:, win - 1]
     j = _arange(max_elems, base)[None, :]
     want = j - head[:, None] + 1   # 1-based gap-element index; < 1 -> base
@@ -304,6 +360,30 @@ def decode_pages_batch(fi: FlatIndex, sym_lo: torch.Tensor,
     vals = _locate(fi, syms, cum_len, cum_sum, base, w, win)
     out = torch.where(want < 1, base[:, None], vals)
     return torch.where(j < total[:, None], out, _INF)
+
+
+def expand_batch_resident(pi: PagedIndex, pool_syms: torch.Tensor,
+                          pool_sums: torch.Tensor, slot_tab: torch.Tensor,
+                          list_ids: torch.Tensor,
+                          max_len: int) -> torch.Tensor:
+    """Out-of-core twin of :func:`expand_batch`: the same positional
+    descent, stream symbols read through the pool, phrase sums from the
+    pre-gathered sums pages (``sym_sum[c]`` by construction)."""
+    return expand_batch(pi.flat, list_ids, max_len, readers=resident_readers(
+        pool_syms, pool_sums, slot_tab, pi.page_size))
+
+
+def decode_pages_resident(pi: PagedIndex, pool_syms: torch.Tensor,
+                          pool_sums: torch.Tensor, slot_tab: torch.Tensor,
+                          sym_lo: torch.Tensor, sym_hi: torch.Tensor,
+                          base: torch.Tensor, head: torch.Tensor, *,
+                          win: int, max_elems: int) -> torch.Tensor:
+    """Out-of-core twin of :func:`decode_pages_batch` (the ranked tier's
+    page-entry decode) over the resident pool."""
+    return decode_pages_batch(
+        pi.flat, sym_lo, sym_hi, base, head, win=win, max_elems=max_elems,
+        readers=resident_readers(pool_syms, pool_sums, slot_tab,
+                                 pi.page_size))
 
 
 def accumulate_scores_device(idf_terms: torch.Tensor,

@@ -2,8 +2,9 @@
 
 A copy of ``repro/index/builder.py`` (numpy) for the port.  Builders are
 routed by name through ``repro_torch.build`` (a device builder named by
-string runs on ``device``, the card by default); the out-of-core page
-store is not ported, so ``store=`` other than none raises.
+string runs on ``device``, the card by default); ``store=`` (or
+``REPRO_STORE``) also writes the paged stream into an out-of-core page
+store.
 
 Produces an ``InvertedIndex`` holding, per configuration:
   * Re-Pair compressed lists (+ optional §3.4 optimization, phrase sums),
@@ -26,6 +27,7 @@ from ..core import codecs as CD
 from ..core.optimize import optimize_rules
 from ..core.repair import RePairResult
 from ..core.sampling import ASampling, BSampling, build_a_sampling, build_b_sampling
+from ..store import build_page_store, resolve_store_kind
 
 
 @dataclasses.dataclass
@@ -39,7 +41,7 @@ class InvertedIndex:
     bitmaps: dict[int, BM.Bitmap]
     codecs: dict[str, CD.EncodedLists]
     term_of_list: np.ndarray | None = None
-    #: out-of-core tier: always None here (the page store is not ported)
+    #: out-of-core tier: the paged stream behind a PageStore, or None
     page_store: object = None
 
     def list_length(self, i: int) -> int:
@@ -104,10 +106,6 @@ def build_index(
     page_size: int | None = None,
     device="cuda",
 ) -> InvertedIndex:
-    # the out-of-core page store (roadmap item 9) is not ported: refuse
-    # store= (and REPRO_STORE) before any work rather than ignore it
-    from ..engine.base import _refuse_store
-    _refuse_store(store)
     lists = [np.asarray(l, dtype=np.int64) for l in lists]
     u = universe or max(int(l[-1]) + 1 for l in lists)
 
@@ -148,7 +146,14 @@ def build_index(
     b_samp = build_b_sampling(rep, b_B)
     enc = {name: CD.encode_lists(lists, name, k=codec_k, universe=u)
            for name in codecs}
+    # out-of-core storage axis (DESIGN.md §11): write the paged stream
+    # (+ per-page phrase sums) at build time — ``store=None`` honours
+    # REPRO_STORE, ""/"none" keeps the fully resident layout
+    kind = resolve_store_kind(store)
+    page_store = (build_page_store(rep, kind=kind, page_size=page_size)
+                  if kind is not None else None)
     return InvertedIndex(
         lists=lists, universe=u, repair=rep, a_samp=a_samp, b_samp=b_samp,
         bitmap_idx=bitmap_idx, bitmaps=bitmaps, codecs=enc,
+        page_store=page_store,
     )

@@ -14,7 +14,13 @@ meets them:
   128-lane padding are gone;
 * ``list_intersect`` — the wrapper: checks its tensors, launches the
   kernel on CUDA tensors, runs ``list_intersect_plain`` on CPU tensors;
-* ``next_geq_paged`` — numpy in, numpy out: route, launch, unsort.
+* ``next_geq_paged`` — numpy in, numpy out: route, launch, unsort;
+* ``next_geq_resident`` — the out-of-core route of the same kernel
+  (``repro/kernels/list_intersect/ops.py:244``): the stream tables are the
+  bounded pool of a :class:`~repro_torch.store.ResidentSet`, and every
+  stream read goes through its page -> slot table.  The router and the
+  lanes are the same; ``probe_working_set`` (copied) is what the pool
+  faults in before the launch.
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ import torch
 
 from .. import check_operands, launch
 from ...core.index import PagedIndex
-from ...engine.torch_backend import paged_readers, skip_descend
+from ...engine.torch_backend import (paged_readers, resident_readers,
+                                     skip_descend)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 12 + [_I] * 4
+_ARGTYPES = [_P] * 13 + [_I] * 6
 _TABLES = ("starts", "lasts", "sym_left", "sym_right", "sym_sum",
            "c_syms_pg", "c_sums_pg")
 
@@ -54,15 +61,19 @@ def routing_snapshot(pi: PagedIndex) -> dict:
     )
 
 
-def pad_paged_operands(pi: PagedIndex
+def pad_paged_operands(pi: PagedIndex, include_stream: bool = True
                        ) -> tuple[dict[str, torch.Tensor], dict, dict]:
     """Kernel operand pack for one paged index: the device tables (no lane
     padding is needed on the card), static bounds, and the numpy routing
-    snapshot.  Compute once per index (``CudaEngine`` caches it)."""
+    snapshot.  Compute once per index (``CudaEngine`` caches it).
+    ``include_stream=False`` packs only the five RAM-tier tables — the
+    out-of-core route takes the stream from the resident pool per
+    launch."""
     fl = pi.flat
     tables = dict(starts=fl.starts, lasts=fl.lasts, sym_left=fl.sym_left,
-                  sym_right=fl.sym_right, sym_sum=fl.sym_sum,
-                  c_syms_pg=pi.c_syms_pg, c_sums_pg=pi.c_sums_pg)
+                  sym_right=fl.sym_right, sym_sum=fl.sym_sum)
+    if include_stream:
+        tables.update(c_syms_pg=pi.c_syms_pg, c_sums_pg=pi.c_sums_pg)
     statics = dict(max_scan=fl.max_scan, max_depth=fl.max_depth,
                    T=fl.num_terminals)
     return tables, statics, routing_snapshot(pi)
@@ -104,6 +115,24 @@ def _probe_windows(host: dict, lids: np.ndarray, xq: np.ndarray):
     return needs, act_lo, act_hi, pos0, s0
 
 
+def probe_working_set(host: dict, list_ids, xs) -> np.ndarray:
+    """Unique stream pages the probe batch can touch — exactly the union
+    of the active lanes' ``[act_lo, act_hi]`` windows (settled lanes never
+    read).  This is what the resident pool faults in before a launch and
+    what the scheduler prefaults between ticks."""
+    lids = np.asarray(list_ids, np.int64)
+    xq = np.asarray(xs, np.int64)
+    if lids.size == 0:
+        return np.zeros(0, np.int64)
+    needs, lo, hi, _, _ = _probe_windows(host, lids, xq)
+    if not needs.any():
+        return np.zeros(0, np.int64)
+    lo, hi = lo[needs], hi[needs]
+    width = int((hi - lo).max()) + 1
+    grid = lo[:, None] + np.arange(width, dtype=np.int64)
+    return np.unique(grid[grid <= hi[:, None]])
+
+
 def route_pages(host: dict, list_ids: np.ndarray, xs: np.ndarray):
     """Host half of the paged query path: bucket lookup + anchor-page
     sort.  Returns ``(order, lids, xs, pos0, s0)``, the lane arrays int32
@@ -119,13 +148,41 @@ def route_pages(host: dict, list_ids: np.ndarray, xs: np.ndarray):
             pos0[order].astype(np.int32), s0[order].astype(np.int32))
 
 
+def poison_outside(syms: torch.Tensor, sums: torch.Tensor,
+                   slot_of_page: torch.Tensor, pages, seed: int = 0) -> int:
+    """Overwrite in place, with random int32 values (negative and
+    ``INT_MIN`` among them), every row of a resident pool mirror that
+    holds none of ``pages`` — how the checks of the resident route show
+    that its answers over the working set ``pages`` do not depend on any
+    other row.  Returns the number of rows poisoned."""
+    dev = syms.device
+    keep = torch.zeros(syms.shape[0], dtype=torch.bool, device=dev)
+    pages = torch.as_tensor(np.asarray(pages, np.int64), device=dev)
+    if pages.numel():
+        slots = slot_of_page[pages].long()
+        keep[slots[slots >= 0]] = True
+    bad = (~keep).nonzero().squeeze(1)
+    gen = torch.Generator().manual_seed(seed)
+    for t in (syms, sums):
+        noise = torch.randint(-2**31, 2**31, (bad.numel(), t.shape[1]),
+                              generator=gen, dtype=torch.int64)
+        noise[:, 0] = -2**31
+        t[bad] = noise.to(torch.int32).to(dev)
+    return int(bad.numel())
+
+
 def list_intersect_plain(lids, xs, pos0, s0, tables: dict, *, max_scan: int,
-                         max_depth: int, T: int) -> torch.Tensor:
+                         max_depth: int, T: int,
+                         slot_of_page=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the fixed-trip-count program of
     ``repro/engine/jnp_backend.py:98 _next_geq_one_paged`` from the
-    router's start state."""
-    read_sym, read_sum = paged_readers(tables["c_syms_pg"],
-                                       tables["c_sums_pg"])
+    router's start state — or, given ``slot_of_page``, of its resident
+    twin ``next_geq_batch_resident`` (``jnp_backend.py:269``), reading
+    the pool ``c_syms_pg`` / ``c_sums_pg`` through the slot table."""
+    syms, sums = tables["c_syms_pg"], tables["c_sums_pg"]
+    read_sym, read_sum = (
+        paged_readers(syms, sums) if slot_of_page is None else
+        resident_readers(syms, sums, slot_of_page, int(syms.shape[1])))
     return skip_descend(tables, T=T, max_scan=max_scan, max_depth=max_depth,
                         read_sym=read_sym, read_sum=read_sum, list_ids=lids,
                         xs=xs, pos=pos0, s=s0)
@@ -133,47 +190,75 @@ def list_intersect_plain(lids, xs, pos0, s0, tables: dict, *, max_scan: int,
 
 def list_intersect(lids: torch.Tensor, xs: torch.Tensor, pos0: torch.Tensor,
                    s0: torch.Tensor, tables: dict, *, max_scan: int,
-                   max_depth: int, T: int) -> torch.Tensor:
+                   max_depth: int, T: int,
+                   slot_of_page: torch.Tensor | None = None) -> torch.Tensor:
     """(Q,) routed lanes -> (Q,) int32 next_geq values, INT_INF where no
-    element >= x exists.  CUDA tensors launch the kernel; CPU tensors run
+    element >= x exists.  ``slot_of_page`` (``(num_pages,)`` int32, -1 =
+    absent) selects the resident route: ``c_syms_pg`` / ``c_sums_pg`` are
+    then the pool's ``(budget, page)`` rows, and every stream read goes
+    through the table.  CUDA tensors launch the kernel; CPU tensors run
     :func:`list_intersect_plain`; anything else raises."""
     dev = lids.device
     check_operands("list_intersect", dev, lids=lids, xs=xs, pos0=pos0, s0=s0,
-                   **{k: tables[k] for k in _TABLES})
+                   **{k: tables[k] for k in _TABLES},
+                   **({} if slot_of_page is None
+                      else {"slot_of_page": slot_of_page}))
     q = lids.shape[0]
     if lids.dim() != 1 or any(t.shape != (q,) for t in (xs, pos0, s0)):
         raise ValueError("list_intersect: lane arrays must share one (Q,) "
                          "shape")
     if tables["c_syms_pg"].shape != tables["c_sums_pg"].shape:
         raise ValueError("list_intersect: paged stream tables differ")
+    if slot_of_page is not None and slot_of_page.dim() != 1:
+        raise ValueError("list_intersect: slot_of_page must be (num_pages,)")
     if dev.type == "cpu":
         return list_intersect_plain(lids, xs, pos0, s0, tables,
                                     max_scan=max_scan, max_depth=max_depth,
-                                    T=T)
+                                    T=T, slot_of_page=slot_of_page)
     if dev.type != "cuda":
         raise ValueError(f"list_intersect: unsupported device {dev}")
     out = torch.empty_like(lids)
     if q:
+        page = int(tables["c_syms_pg"].shape[1])
+        slots = (None if slot_of_page is None else slot_of_page.data_ptr())
+        n_pages = 0 if slot_of_page is None else int(slot_of_page.shape[0])
         launch("list_intersect", dev, _ARGTYPES,
                *(t.data_ptr() for t in (lids, xs, pos0, s0)),
-               *(tables[k].data_ptr() for k in _TABLES), out.data_ptr(),
-               q, max_scan, max_depth, T)
+               *(tables[k].data_ptr() for k in _TABLES), slots,
+               out.data_ptr(), q, max_scan, max_depth, T, page, n_pages)
     return out
 
 
 def next_geq_paged(tables: dict, host: dict, list_ids: np.ndarray,
-                   xs: np.ndarray, *, max_scan: int, max_depth: int,
-                   T: int) -> np.ndarray:
+                   xs: np.ndarray, *, max_scan: int, max_depth: int, T: int,
+                   slot_of_page: torch.Tensor | None = None) -> np.ndarray:
     """Paged next_geq over a cached operand pack: (Q,) ids × (Q,) probes
     -> (Q,) int32 values, INT_INF where no element >= x exists.  Routes on
-    the host, runs K1 on the tables' device, restores request order."""
+    the host, runs K1 on the tables' device (through ``slot_of_page`` when
+    given), restores request order."""
     q = np.asarray(list_ids).shape[0]
     if q == 0:
         return np.zeros(0, np.int32)
     order, *lanes = route_pages(host, list_ids, xs)
     dev = tables["starts"].device
     out = list_intersect(*(torch.from_numpy(a).to(dev) for a in lanes),
-                         tables, max_scan=max_scan, max_depth=max_depth, T=T)
+                         tables, max_scan=max_scan, max_depth=max_depth, T=T,
+                         slot_of_page=slot_of_page)
     unsort = np.empty(q, np.int64)
     unsort[order] = np.arange(q)
     return out.cpu().numpy()[unsort]
+
+
+def next_geq_resident(tables: dict, host: dict, resident,
+                      list_ids: np.ndarray, xs: np.ndarray, *,
+                      max_scan: int, max_depth: int, T: int) -> np.ndarray:
+    """Out-of-core :func:`next_geq_paged`: ``tables`` is the five-table
+    pack (``include_stream=False``).  Faults the batch's working set into
+    ``resident`` (a no-op when the scheduler prefaulted it), takes the
+    pool's device mirror on the tables' device, and launches K1's
+    resident route through the pool's slot table."""
+    resident.ensure(probe_working_set(host, list_ids, xs))
+    syms, sums, slots = resident.device_tables(tables["starts"].device)
+    return next_geq_paged(dict(tables, c_syms_pg=syms, c_sums_pg=sums), host,
+                          list_ids, xs, max_scan=max_scan,
+                          max_depth=max_depth, T=T, slot_of_page=slots)

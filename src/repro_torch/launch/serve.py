@@ -22,6 +22,13 @@ card):
 * ``--codec C``: serve under the per-list codec tier (``repair``, ``ef``,
   ``bitmap`` or ``adaptive``; default ``REPRO_CODEC``, else ``repair``)
   and print the tier's list counts and bits per posting;
+* ``--store S`` / ``--resident-pages N``: serve the compressed stream
+  from a ``memory`` or ``mmap`` page store through a bounded admission
+  cache of N pages (defaults ``REPRO_STORE``, ``REPRO_STORE_DIR`` for the
+  mmap directory, and ``REPRO_RESIDENT_PAGES``; unset means fully
+  resident); prints the store's geometry and, after the boolean
+  workload, the cache's faults, evictions and hit rate (the page is
+  ``REPRO_PAGE_SIZE`` symbols, else 2,048);
 * ``--refreshes N``: grow the collection N times by ``GROWTH_DOCS``
   documents of a ``PostingsSource`` (new documents only), rebuild it with
   the same builder, hot-swap it in (``QueryServer.rebuild``) and check 8
@@ -126,7 +133,9 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
                   topk: int = 0, batch_window: int | None = None,
                   num_docs: int = 2000, vocab: int = 4000,
                   seed: int = 0, codec: str | None = None,
-                  builder: str = "host", refreshes: int = 0) -> None:
+                  builder: str = "host", refreshes: int = 0,
+                  store: str | None = None,
+                  resident_pages: int | None = None) -> None:
     from ..build import make_builder
     from ..kernels import resolve_device
     from ..serve.query_serve import QueryServer
@@ -148,13 +157,21 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
           f"{res.grammar.num_rules} rules from {n_sym} postings in "
           f"{dt:.2f}s")
     srv = QueryServer(res, max_short_len=256, engine=engine, device=device,
-                      batch_window=batch_window, codec=codec)
+                      batch_window=batch_window, codec=codec, store=store,
+                      resident_pages=resident_pages)
     print(f"engine {engine} on "
           f"{getattr(srv.engine, 'device', 'host')}")
     if srv.engine.tier is not None:
         rep = srv.engine.tier.space_report(res)
         print(f"codec tier [{rep['mode']}]: {rep['counts']} "
               f"({rep['bits_per_posting']:.2f} bits/posting)")
+    if srv.engine.resident is not None:
+        ss = srv.engine.resident.stats()
+        extra = (f", {srv.engine.store.disk_bytes / 1e6:.1f} MB on disk"
+                 if hasattr(srv.engine.store, "disk_bytes") else "")
+        print(f"page store [{ss['kind']}]: {ss['num_pages']} pages x "
+              f"{ss['page_size']} syms, resident budget {ss['budget']}"
+              f"{extra}")
     rng = np.random.default_rng(0)
     pairs = [tuple(map(int, rng.choice(len(lists), 2, replace=False)))
              for _ in range(n_queries)]
@@ -191,6 +208,16 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
               f"{st['pad_lanes']} pad lanes), memo hit rate "
               f"{st['memo_hit_rate']:.3f}; codec dispatches "
               f"{st['codec_dispatches']}")
+        if st["store"] is not None:
+            print(f"admission cache: {st['page_faults']} faults / "
+                  f"{st['page_evictions']} evictions, "
+                  f"{st['resident_pages']} pages resident "
+                  f"(budget {st['store']['budget']}, pool grows "
+                  f"{st['store']['pool_grows']}), "
+                  f"{st['fault_bytes'] / 1e6:.2f} MB faulted, hit rate "
+                  f"{st['store_hit_rate']:.3f}, prefetched "
+                  f"{st['prefetched_pages']} pages (accuracy "
+                  f"{st['prefetch_accuracy']:.3f})")
 
     if topk:
         from ..query import rank_oracle
@@ -291,12 +318,21 @@ def main() -> None:
     ap.add_argument("--refreshes", type=int, default=0,
                     help="after serving, grow the collection, rebuild and "
                          "hot-swap the index this many times")
+    ap.add_argument("--store", default=None, choices=("memory", "mmap"),
+                    help="out-of-core page store: serve the compressed "
+                         "stream from a page store behind the bounded "
+                         "admission cache (default: fully resident, or "
+                         "REPRO_STORE)")
+    ap.add_argument("--resident-pages", type=int, default=None,
+                    help="admission-cache budget in pages (default: all "
+                         "pages, or REPRO_RESIDENT_PAGES)")
     args = ap.parse_args()
     serve_queries(args.n, args.engine, device=args.device, query=args.query,
                   concurrency=args.concurrency, topk=args.topk,
                   batch_window=args.batch_window, num_docs=args.num_docs,
                   vocab=args.vocab, seed=args.seed, codec=args.codec,
-                  builder=args.builder, refreshes=args.refreshes)
+                  builder=args.builder, refreshes=args.refreshes,
+                  store=args.store, resident_pages=args.resident_pages)
 
 
 if __name__ == "__main__":

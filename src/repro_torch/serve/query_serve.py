@@ -14,7 +14,8 @@ The port of ``repro/serve/query_serve.py::QueryServer``.  The server:
 Pick the backend at construction: ``engine="cuda"`` (default: the
 ``list_intersect``, ``ef_next_geq`` and ``page_score`` kernels),
 ``"torch"`` (plain PyTorch programs, flat or ``paged=True``), or
-``"host"`` (CPU reference).  ``page_size`` sets the paged stream layout.
+``"host"`` (CPU reference).  ``page_size`` sets the paged stream layout
+(on the host engine, only the page store's fault granularity).
 ``codec`` selects the per-list codec tier: ``"repair"`` (default),
 ``"ef"`` / ``"bitmap"`` (forced), ``"adaptive"`` (cost-model choice per
 list), or None to honour ``REPRO_CODEC``; every engine the server builds
@@ -36,8 +37,15 @@ device), stands up a complete replacement engine off to the side, and
 swaps it in with one reference assignment — queries in flight on the old
 engine finish on the old index, the next batch sees the new one.
 
-Not ported yet: ``mesh`` sharding, the page store and streaming
-ingestion.
+**Out of core**: ``store`` (``"memory"`` / ``"mmap"``, or None to
+honour ``REPRO_STORE``) puts the compressed stream behind a page store,
+served through a bounded admission cache of ``resident_pages`` pages
+(None honours ``REPRO_RESIDENT_PAGES``; unset means every page).  Every
+``swap_index`` builds a FRESH store and resident pool for the new engine,
+so the version pin extends to the page cache: in-flight queries hold the
+old engine, hence the old pool.
+
+Not ported yet: ``mesh`` sharding and streaming ingestion.
 """
 
 from __future__ import annotations
@@ -61,15 +69,22 @@ class QueryServer:
                  B: int = 8, engine: str = "cuda", device="cuda",
                  page_size: int = DEFAULT_PAGE, paged: bool = False,
                  batch_window: int | None = None,
-                 codec: str | None = None):
+                 codec: str | None = None,
+                 store: str | None = None,
+                 resident_pages: int | None = None):
         self._engine_name = engine
         #: where rebuild() runs a device builder named by string
         self._device = device
-        kwargs: dict = {"codec": codec}
+        # engine construction parameters, kept so every swap_index and
+        # rebuild stands up an identical engine (and a fresh store + pool)
+        # over the new index
+        kwargs: dict = {"codec": codec, "store": store,
+                        "resident_pages": resident_pages,
+                        "page_size": page_size}
         if engine in ("torch", "cuda"):
             self._device = resolve_device(device)
             kwargs.update(max_short_len=max_short_len, B=B,
-                          page_size=page_size, device=self._device)
+                          device=self._device)
             if engine == "torch":
                 kwargs["paged"] = paged
         self._engine_kwargs = kwargs

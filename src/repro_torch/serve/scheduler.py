@@ -442,12 +442,8 @@ class QueryScheduler:
             terms = per_eng.setdefault(id(eng), (eng, set()))[1]
             terms.update(int(t) for t in fl.terms)
         jobs: list[tuple[object, np.ndarray]] = []
-        seen_res: set[int] = set()
         for eng, terms in per_eng.values():
-            res = eng.resident
-            if id(res) in seen_res:     # device+host fallback share pools
-                continue
-            seen_res.add(id(res))
+            res = eng.resident          # one pool per engine
             pages = eng.span_pages(terms)
             missing = res.peek_missing(pages, cap=max(1, res.budget // 2))
             if missing.size:

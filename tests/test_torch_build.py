@@ -264,16 +264,29 @@ def test_index_builder_matches_repro(hybrid):
         assert got.b_samp.kbits == want.b_samp.kbits
         for a, b in zip(got.b_samp.abs_before, want.b_samp.abs_before):
             np.testing.assert_array_equal(a, b)
-        assert got.page_store is None
+        # both honour REPRO_STORE alike (no store unless it is set)
+        assert (got.page_store is None) == (want.page_store is None)
 
 
 def test_index_builder_refuses_store(monkeypatch):
+    """``store=`` builds the page store (the name is kept from when the
+    port refused it): ``mmap`` writes the paged stream to disk,
+    ``REPRO_STORE=memory`` attaches an in-memory store, ``none`` opts
+    out, and an unknown kind raises ``ValueError`` — with the same pages
+    as the JAX package's store."""
     lists = small_lists(seed=8, n_lists=4)
-    with pytest.raises(NotImplementedError, match="roadmap item 9"):
-        build_index(lists, store="mmap", device="cpu")
+    got = build_index(lists, store="mmap", page_size=128, device="cpu")
+    want = build_index_jax(lists, store="mmap", page_size=128)
+    assert got.page_store.kind == "mmap" and got.page_store.disk_bytes > 0
+    pages = np.arange(got.page_store.num_pages)
+    for a, b in zip(got.page_store.gather(pages),
+                    want.page_store.gather(pages)):
+        np.testing.assert_array_equal(a, b)
     monkeypatch.setenv("REPRO_STORE", "memory")
-    with pytest.raises(NotImplementedError, match="roadmap item 9"):
-        build_index(lists, device="cpu")
+    assert build_index(lists, device="cpu").page_store.kind == "memory"
+    assert build_index(lists, store="none", device="cpu").page_store is None
+    with pytest.raises(ValueError, match="unknown page store kind"):
+        build_index(lists, store="tape", device="cpu")
     with pytest.raises(ValueError, match="build_cfg"):
         build_index(lists, max_rules=3, build_cfg=None,
                     builder=_port("host"), store="none")

@@ -23,6 +23,12 @@ installed:
   intersections (short sides longer than one probe row among them) and
   ranked top-k, with every launch counted — and the same under the codec
   tiers ``ef``, ``bitmap`` and ``adaptive``;
+* K1's resident route (out of core) on a pool smaller than the stream,
+  its rows outside the working set poisoned, at pages 128, 384 and 2048
+  — kernel == plain version == fully resident route == set oracle; a
+  ``CudaEngine(store="mmap")`` at a ~10% budget on the card == on the CPU
+  == fully resident; the pool's device mirror re-uploaded whole after a
+  grow;
 * ``pair_count`` (K4): random streams with tables of one and of several
   shared-memory chunks (duplicates straddling a chunk boundary),
   sentinels, negative symbols, all-invalid, one-slot and empty streams —
@@ -65,7 +71,9 @@ from repro_torch.kernels.list_intersect import ops as K1
 from repro_torch.kernels.page_score import ops as K2
 from repro_torch.kernels.pair_count import ops as K4
 from repro_torch.kernels.pair_count import pair_count_ref
-from repro_torch.query import naive_eval, search_topk
+from repro_torch.query import naive_eval, parse, search_topk
+from repro_torch.serve.scheduler import QueryScheduler
+from repro_torch.store import ResidentSet, build_page_store
 
 pytestmark = pytest.mark.cuda
 INF = int(TI.INT_INF)
@@ -183,6 +191,162 @@ def test_cuda_engine_on_card_matches_cpu(card, clists, cres):
         np.testing.assert_array_equal(g.scores, w.scores)
     assert KR.LAUNCHES["list_intersect"] > n0["list_intersect"]
     assert KR.LAUNCHES["page_score"] > n0["page_score"]
+
+
+@pytest.fixture(scope="module")
+def rlists():
+    """Enough random lists (and two dense runs) for a stream of over ten
+    2,048-symbol pages, so a pool smaller than the stream exists at every
+    page size."""
+    rng = np.random.default_rng(23)
+    return ([np.unique(rng.choice(60_000, size=int(rng.integers(20, 500)),
+                                  replace=False)) for _ in range(160)]
+            + [np.arange(0, 3000, dtype=np.int64),
+               np.arange(7000, 19000, 4, dtype=np.int64)])
+
+
+@pytest.fixture(scope="module")
+def rres(rlists):
+    return repair_compress(rlists)
+
+
+@pytest.mark.parametrize("page", [128, 384, 2048])
+def test_list_intersect_resident_matches_plain(card, rlists, rres, page):
+    """K1's resident route on a pool smaller than the stream, its rows
+    outside the working set poisoned (row 0, where absent pages clamp,
+    among them), with lanes that need no stream read on lists outside the
+    working set: kernel == plain version == the fully resident route ==
+    set oracle, in one launch."""
+    pt = TI.build_paged_index(TI.build_flat_index(rres, device=card), page)
+    tables, statics, host = K1.pad_paged_operands(pt, include_stream=False)
+    full = K1.pad_paged_operands(pt)[0]
+    starts = np.asarray(rres.starts)
+    half = pt.num_pages // 2
+    pick = np.flatnonzero(starts[1:] <= half * page)
+    lids, xs = _lanes([rlists[t] for t in pick], 60_000, n=6000)
+    lids = pick[lids].astype(np.int32)
+    # lanes that need no stream read, on lists outside the working set:
+    # their start pages read as poison
+    settled = np.flatnonzero(starts[:-1] >= (half + 1) * page)
+    lids = np.concatenate([lids, np.repeat(settled, 3)]).astype(np.int32)
+    xs = np.concatenate([xs, [x for t in settled for x in (
+        0, rlists[t][0], rlists[t][-1] + 1)]]).astype(np.int32)
+    ws = K1.probe_working_set(host, lids, xs)
+    assert not np.isin(starts[settled] // page, ws).any()
+    others = np.setdiff1d(np.arange(pt.num_pages), ws)[:3]
+    assert ws.size and ws.size + others.size < pt.num_pages
+    rs = ResidentSet(build_page_store(rres, kind="memory", pi=pt),
+                     budget=ws.size + others.size)
+    rs.ensure(others)
+    rs.ensure(ws)
+    assert rs.slot_of_page[others[0]] == 0
+    syms, sums, slots = rs.device_tables(card)
+    assert syms.device == card and syms.shape == (ws.size + 3, page)
+    assert K1.poison_outside(syms, sums, slots, ws, seed=page) == 3
+    order, *lanes = K1.route_pages(host, lids, xs)
+    lanes = [torch.from_numpy(a).to(card) for a in lanes]
+    pool = dict(tables, c_syms_pg=syms, c_sums_pg=sums)
+    n0 = KR.LAUNCHES["list_intersect"]
+    got = K1.list_intersect(*lanes, pool, slot_of_page=slots, **statics)
+    torch.cuda.synchronize()
+    assert KR.LAUNCHES["list_intersect"] == n0 + 1
+    plain = K1.list_intersect_plain(*lanes, pool, slot_of_page=slots,
+                                    **statics)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, K1.list_intersect(*lanes, full, **statics))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _oracle(rlists, lids[order], xs[order]))
+
+
+def test_cuda_engine_store_on_card_matches_cpu(card, rlists, rres):
+    """``CudaEngine(store="mmap")`` at a ~10% budget on the card == the
+    same engine on the CPU == the engine fully resident: probes,
+    intersections, coalesced boolean queries and ranked top-k, with K1's
+    resident route launched."""
+    budget = max(1, -(-int(np.asarray(rres.starts)[-1]) // 128) // 10)
+    kw = dict(page_size=128, store="mmap", resident_pages=budget)
+    on_card = CudaEngine(rres, device=card, **kw)
+    on_cpu = CudaEngine(rres, device="cpu", **kw)
+    resident = CudaEngine(rres, device=card, page_size=128, store="")
+    assert on_card.pi.c_syms_pg.shape[0] == 1 and on_card.fi.c.numel() == 1
+    lids, xs = _lanes(rlists, 60_000, n=3000)
+    n0 = dict(KR.LAUNCHES)
+    want = resident.next_geq_batch(lids, xs)
+    for eng in (on_card, on_cpu):
+        np.testing.assert_array_equal(eng.next_geq_batch(lids, xs), want)
+    assert KR.LAUNCHES["list_intersect"] >= n0["list_intersect"] + 2
+    pairs = [(0, 12), (13, 2), (160, 161), (3, 14), (161, 40), (7, 160)]
+    for g, w, r in zip(on_card.intersect_pairs(pairs),
+                       on_cpu.intersect_pairs(pairs),
+                       resident.intersect_pairs(pairs)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, r)
+    qs = [f"{a} AND {b}" for a, b in pairs] + ["(0 AND 160) OR NOT 161"]
+    got = QueryScheduler(on_card, batch_window=8).search_many(qs)
+    for q, g in zip(qs, got):
+        np.testing.assert_array_equal(
+            g, naive_eval(parse(q), rlists, rres.universe))
+    for bag in ([160, 161], [0, 12, 13]):
+        g, w = search_topk(on_card, bag, 10), search_topk(on_cpu, bag, 10)
+        np.testing.assert_array_equal(g.docs, w.docs)
+        np.testing.assert_array_equal(g.scores, w.scores)
+    assert on_card.resident.stats()["page_faults"] > 0
+
+
+def test_resident_pool_grow_reuploads_whole(card, rres):
+    """The device mirror: fault batches land by ``index_copy_`` in the
+    same card tensors; after a ``_grow`` the whole pool is uploaded again
+    at its new shape.  The mirror always equals the numpy pool."""
+    rs = ResidentSet(build_page_store(rres, kind="memory", page_size=128),
+                     budget=3)
+    rs.ensure([0, 1])
+    syms, sums, slots = rs.device_tables(card)
+    rs.ensure([5])
+    again = rs.device_tables(card)
+    assert again[0] is syms and again[1] is sums
+    rs.ensure(np.arange(6, 11))                  # 5 pages > budget 3
+    assert rs.pool_grows == 1 and rs.budget == 6
+    grown = rs.device_tables(card)
+    assert grown[0] is not syms and grown[0].shape == (6, 128)
+    assert grown[0].device == card
+    for t, a in zip(grown, (rs.pool_syms, rs.pool_sums, rs.slot_of_page)):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
+
+
+def test_resident_mirror_orders_overlapping_batches(card, rlists, rres):
+    """Two pending fault batches that write the same pool row on the
+    card: a prefetch admission, then a demand ``ensure`` that evicts the
+    prefetched pages into those rows, both before the next
+    ``device_tables``.  The mirror equals the numpy pool, and K1's
+    resident route answers exactly."""
+    lids = np.repeat(np.array([3, 40, 90, 161], np.int32), 64)
+    xs = np.random.default_rng(5).integers(
+        0, 60_000, lids.size).astype(np.int32)
+    full = CudaEngine(rres, device=card, page_size=128, store="")
+    n = K1.probe_working_set(full._host, lids, xs).size
+    assert n >= 2
+    eng = CudaEngine(rres, device=card, page_size=128, store="memory",
+                     resident_pages=n)
+    rs = eng.resident
+    ws = K1.probe_working_set(eng._route_host, lids, xs)
+    rest = np.setdiff1d(np.arange(rs.store.num_pages), ws)
+    old, pf = rest[:n], rest[n:n + n // 2]
+    rs.ensure(old)
+    rs.device_tables(card)
+    assert rs.admit_prefetched(pf, *rs.store.gather(pf)) == pf.size
+    pf_rows = rs.slot_of_page[pf].copy()
+    rs.ensure(ws)                       # evicts the rest of old, then pf
+    assert (rs.slot_of_page[pf] < 0).all()
+    assert np.isin(pf_rows, rs.slot_of_page[ws]).all()
+    faults, n0 = rs.page_faults, KR.LAUNCHES["list_intersect"]
+    got = eng.next_geq_batch(lids, xs)
+    assert KR.LAUNCHES["list_intersect"] > n0
+    assert rs.page_faults == faults and rs.pool_grows == 0
+    np.testing.assert_array_equal(got, full.next_geq_batch(lids, xs))
+    np.testing.assert_array_equal(got, _oracle(rlists, lids, xs))
+    for t, a in zip(rs.device_tables(card),
+                    (rs.pool_syms, rs.pool_sums, rs.slot_of_page)):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
 
 
 def test_ef_next_geq_kernel_matches_plain(card, clists):

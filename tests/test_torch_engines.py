@@ -213,7 +213,9 @@ def test_cuda_engine_scores_through_page_score_at_page_128(
         return wrapped(*a, **kw)
 
     monkeypatch.setattr(PS, "page_score", counting)
-    eng = CudaEngine(results[1], device="cpu", page_size=128)
+    # fully resident (store="" also under REPRO_STORE): out of core the
+    # page decodes take the windowed resident decode, not page_score
+    eng = CudaEngine(results[1], device="cpu", page_size=128, store="")
     assert eng.score_index.page_size == eng.pi.page_size == 128
     got = search_topk(eng, [0, 14], 3)
     od, osc = rank_oracle(elists, results[1].universe, [0, 14], 3)
@@ -233,13 +235,17 @@ def test_registry_and_unported_options(results, monkeypatch):
     assert eng.tier is None                       # repair: no tier at all
     ef = make_engine("cuda", results[1], device="cpu", codec="ef")
     assert ef.tier.mode == "ef" and ef.tier.counts()["ef"] > 0
-    with pytest.raises(NotImplementedError, match="store"):
-        make_engine("host", results[1], store="mmap")
+    host = make_engine("host", results[1], store="mmap")
+    assert host.store.kind == "mmap" and host.resident is not None
+    with pytest.raises(ValueError, match="unknown page store kind"):
+        make_engine("host", results[1], store="tape")
     monkeypatch.setenv("REPRO_CODEC", "adaptive")
     ad = make_engine("torch", results[1], device="cpu")
     assert ad.tier.mode == "adaptive"
     assert sum(ad.tier.counts().values()) == len(results[1].orig_lengths)
     monkeypatch.setenv("REPRO_CODEC", "repair")
     monkeypatch.setenv("REPRO_STORE", "memory")
-    with pytest.raises(NotImplementedError, match="store"):
-        make_engine("torch", results[1], device="cpu")
+    mem = make_engine("torch", results[1], device="cpu")
+    assert mem.store.kind == "memory" and mem.pi is not None   # paged
+    assert make_engine("torch", results[1], device="cpu",
+                       store="none").store is None

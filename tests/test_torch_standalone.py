@@ -179,7 +179,9 @@ def test_resolve_device_rejects_other_devices():
 def test_wrappers_refuse_other_devices(tiny_res):
     """A tensor that is neither on the CPU nor on a card is refused: the
     plain versions run only because a tensor lies on the CPU."""
-    eng = make_engine("cuda", tiny_res, device="cpu")
+    # fully resident (store="" also under REPRO_STORE): the operand packs
+    # of K1 and K2 hold the whole paged stream
+    eng = make_engine("cuda", tiny_res, device="cpu", store="")
     meta = torch.device("meta")
     tables1 = {k: v.to(meta) for k, v in eng._tables.items()}
     lanes = [torch.zeros(8, dtype=torch.int32, device=meta)] * 4
