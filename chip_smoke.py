@@ -50,7 +50,9 @@ exits non-zero:
    is held against its plain version on the same inputs and timed the
    same way, beside one PyTorch ``searchsorted`` over the uncompressed
    postings that computes the same ``next_geq`` answers (the library time
-   of K1 and K3);
+   of K1 and K3); K3's largest launch's lane layout is printed (lists,
+   lanes per list, the share of warps on one list and of lanes the masks
+   settle);
 6. profile — the ``repair`` and ``ef`` passes of phase 5 again, on fresh
    servers under ``torch.profiler``: each kernel's device time summed
    over its launches on the path (K1 and K2 in ``repair``, K3 in
@@ -76,7 +78,9 @@ exits non-zero:
    4,096 symbols against a stack walk, ``np.intersect1d`` per pair, the
    popcount), then each kernel is held against its plain version and
    timed beside its bound and its library yardstick (``torch.cumsum``,
-   row-wise ``torch.searchsorted``, ``torch.bitwise_and``; none for K5).
+   row-wise ``torch.searchsorted`` and ``torch.isin`` for K7's sorted
+   rows, ``torch.isin`` for its random ones, ``torch.bitwise_and``; none
+   for K5).
    The entry points run once more under ``torch.profiler`` for each
    kernel's device time summed over the phase.  Last,
    ``repro_torch.launch.quickstart`` runs on the card;
@@ -90,18 +94,21 @@ exits non-zero:
    ``rank_oracle`` and phase 5's fully resident answers.
    ``ResidentSet.stats()`` (budget, faults, evictions, fault bytes,
    ``pool_grows``, hit rate, prefetch counters), q/s and p50/p95 are
-   printed.  K1's largest resident launch of each workload is held
-   against its plain version on the same pool and slot table, the pool's
-   rows outside the launch's working set poisoned, and timed beside the
-   fully resident route on the same lanes.
+   printed, and a fresh out-of-core pass runs under ``torch.profiler``
+   for K1's resident path.  K1's largest resident launch of each
+   workload is held against its plain version on the same pool and slot
+   table, the pool's rows outside the launch's working set poisoned, and
+   timed beside the fully resident route on the same lanes.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
 the cuda build, K5-K8 in phase 8 — times and bounds at its main launch,
 ``path_ms``, its device time summed over the launches of its path, with
 every batch it was held on under ``shapes``, K1's resident route of
-phase 9 among them), the ``nvidia-smi`` line, and ``{"ok": true,
-"device": {...}}``.
+phase 9 among them, each with the bytes and operations of its bound),
+the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  A
+kernel's bound counts what its function needs on the batch's inputs
+(``k1_traffic`` ... ``k7_traffic``), the same for any kernel.
 """
 
 from __future__ import annotations
@@ -388,13 +395,19 @@ def k2_traffic(meta, tables, statics, b_pad: int) -> tuple[float, float]:
 
 
 def k3_traffic(lids, xs, pack) -> tuple[float, float]:
-    """Bytes and int32 operations one K3 launch needs on these lanes,
-    replaying the kernel's loops with their early exits (int64 here: no
-    offset of this store wraps int32).  Each input is read once: the lane
-    arrays, the directory entries of the probed lists, and the union of
-    select samples, high-bits words and low-bits words the lanes' loops
-    touch; the output is written once.  Operations are counted per loop
-    trip from the kernel's source."""
+    """Bytes and int32 operations the function of one K3 launch needs on
+    these lanes, the same for any kernel: the reference's algorithm
+    (``core/ef.py`` ``ef_next_geq_np``) replayed with its loops stopped at
+    their fixed points (int64 here: no offset of this store wraps int32).
+    Bytes: each input it touches read once — the lane arrays, the
+    directory entries of the probed lists, and the union of select
+    samples, high-bits words and low-bits words the lanes reach — and the
+    output written once.  Operations per lane: 6 for the masks; on a lane
+    the masks do not settle, per select 6 for each sample-bisection trip
+    up to its fixed point, 3 for each word of the selected sample page
+    popcounted up to the word that holds the answer, 4 for the in-word
+    select and 4 for its arithmetic; 8 for each bucket-bisection trip and
+    10 for the answer."""
     import torch
     from repro_torch.core.ef import popc
     tab = {k: v.long() for k, v in pack.items() if k != "hi_words"}
@@ -424,7 +437,7 @@ def k3_traffic(lids, xs, pack) -> tuple[float, float]:
         for _ in range(32):
             if not bool(live.any()):
                 break
-            ops += 9 * int(live.sum())
+            ops += 6 * int(live.sum())
             mid = (lo + hi + 1) >> 1
             mi = mid.clamp(max=npg - 1)
             touched["rank"].append(mi[live])
@@ -447,7 +460,7 @@ def k3_traffic(lids, xs, pack) -> tuple[float, float]:
             scan = ~found
             if not bool(scan.any()):
                 break
-            ops += 6 * int(scan.sum())
+            ops += 3 * int(scan.sum())
             wi = (w0 + j).clamp(max=nw - 1)
             touched["hi"].append(wi[scan])
             c = popc(hi_words[wi]).long()
@@ -458,18 +471,11 @@ def k3_traffic(lids, xs, pack) -> tuple[float, float]:
             found |= take
             cum = cum + c
         w = hi_words[word_sel.clamp(max=nw - 1)].long() & 0xFFFFFFFF
-        cnt = torch.zeros_like(k_in)
-        bit = torch.zeros_like(k_in)
-        found = torch.zeros_like(live)
-        for b in range(32):
-            scan = ~found
-            ops += 5 * int(scan.sum())
-            isb = ((w >> b) & 1) == int(ones)
-            hit = scan & isb & (cnt == k_in)
-            bit = torch.where(hit, b, bit)
-            found |= hit
-            cnt = cnt + isb.long()
-        ops += 4 * k.numel()
+        bits = (w[:, None] >> torch.arange(32, device=w.device)) & 1
+        isb = (bits == int(ones)).long()
+        hit = (isb.cumsum(1) == (k_in + 1)[:, None]) & (isb == 1)
+        bit = torch.where(hit.any(1), hit.int().argmax(1), 0)
+        ops += 8 * k.numel()
         return (word_sel - hw0) * 32 + bit
 
     nlw = pack["lo_words"].numel()
@@ -490,7 +496,7 @@ def k3_traffic(lids, xs, pack) -> tuple[float, float]:
         live = lo_b < hi_b
         if not bool(live.any()):
             break
-        ops += 12 * int(live.sum())
+        ops += 8 * int(live.sum())
         mid = (lo_b + hi_b) >> 1
         gbit = gb0 + mid * l
         low(gbit[live])
@@ -506,6 +512,28 @@ def k3_traffic(lids, xs, pack) -> tuple[float, float]:
     uniq = sum(int(torch.unique(torch.cat(v)).numel()) if v else 0
                for v in touched.values())
     return float(12 * q + dir_bytes + 4 * uniq), float(ops)
+
+
+def k3_layout(lids, xs, pack) -> dict:
+    """How one K3 launch's lanes fall on the store's lists: the distinct
+    lists, lanes per list (min / median / max), runs of consecutive lanes
+    on one list, the share of 32-lane warps whose lanes all probe one
+    list, and the share of lanes the masks settle (an empty list, x at or
+    before the head, x past the tail)."""
+    import torch
+    li, x = lids.long(), xs.long()
+    n, first, last = (pack[k].long()[li] for k in ("n", "firsts", "lasts"))
+    settled = (n == 0) | (x <= first) | (x > last)
+    counts = torch.unique(li, return_counts=True)[1].sort().values
+    warps = li[:li.numel() // 32 * 32].view(-1, 32)
+    return dict(lanes=int(li.numel()), lists=int(counts.numel()),
+                lanes_per_list=[int(counts[0]),
+                                int(counts[counts.numel() // 2]),
+                                int(counts[-1])],
+                runs=int((li[1:] != li[:-1]).sum()) + 1,
+                one_list_warps=float((warps == warps[:, :1]).all(1)
+                                     .float().mean()),
+                settled=float(settled.float().mean()))
 
 
 def k4_traffic(ca, pa, vm) -> tuple[float, float]:
@@ -789,13 +817,14 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
     keeps the inputs of each kernel's largest launch (overall and per
     workload), and of every K2 launch; a launch through a resident pool's
     slot table is counted and its pool and table are copied as they were.
-    Returns the launches, shapes, those launches, times, latencies,
-    stats and the answers."""
+    ``wrappers`` maps each (module, wrapper name) to the kernel it
+    launches; the records are keyed by the kernel.  Returns the launches,
+    shapes, those launches, times, latencies, stats and the answers."""
     import numpy as np
     import torch
     from repro_torch import kernels as KR
     from repro_torch.query import naive_eval, rank_oracle
-    shapes = {name: [] for _, name in wrappers}
+    shapes = {name: [] for name in wrappers.values()}
     largest: dict[str, tuple] = {}
     by_phase: dict[tuple, tuple] = {}
     slot_calls = dict.fromkeys(shapes, 0)
@@ -823,8 +852,9 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
             return fn(*a, **kw)
         return call
 
-    for (mod, name), fn in wrappers.items():
-        setattr(mod, name, recording(name, fn))
+    saved = {key: getattr(*key) for key in wrappers}
+    for (mod, attr), name in wrappers.items():
+        setattr(mod, attr, recording(name, saved[(mod, attr)]))
     n0 = len(srv.scheduler.latencies)
     try:
         KR.reset_launches()
@@ -839,8 +869,8 @@ def _serve(srv, queries, bags, lists, universe, wrappers):
         torch.cuda.synchronize()
         launches = dict(KR.LAUNCHES)
     finally:
-        for (mod, name), fn in wrappers.items():
-            setattr(mod, name, fn)
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
     lat = np.asarray(srv.scheduler.latencies, np.float64) * 1e3
     for q, got in zip(queries, outs):
         if not np.array_equal(got, naive_eval(q, lists, universe)):
@@ -878,18 +908,20 @@ def _hold(name, kernel, plain, args, kw, traffic, timing_args=None) -> tuple:
         (lambda: next(timing_args))
     ms, wall = _device_ms(lambda: kernel(*nxt(), **kw), 100)
     plain_ms, plain_wall = _device_ms(lambda: plain(*nxt(), **kw), 3)
-    bound, by = _bound(*traffic())
+    nbytes, ops = traffic()
+    bound, by = _bound(nbytes, ops)
     return out_k, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound, bound_by=by, call_ms=wall,
-                       plain_call_ms=plain_wall)
+                       bound_ms=bound, bound_by=by, bound_bytes=nbytes,
+                       bound_ops=ops, call_ms=wall, plain_call_ms=plain_wall)
 
 
 def _print_hold(name: str, row: dict, unit: str, against: str) -> None:
     print(f"[kernels] {name}, {row['batch']}: {row['size']} {unit}, 0 "
           f"mismatches vs {against}; device {row['ms']:.5f} ms (plain "
           f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms by "
-          f"{row['bound_by']}); per call {row['call_ms']:.4f} ms (plain "
-          f"{row['plain_call_ms']:.3f} ms)")
+          f"{row['bound_by']}: {row['bound_bytes']:.0f} B, "
+          f"{row['bound_ops']:.0f} ops); per call {row['call_ms']:.4f} ms "
+          f"(plain {row['plain_call_ms']:.3f} ms)")
 
 
 def _kernel_row(name, source, replaces, launches, path, main,
@@ -959,21 +991,14 @@ def k5_traffic(syms, tables, max_depth) -> tuple[float, float]:
 
 
 def k7_traffic(a, b) -> tuple[float, float]:
-    """Bytes and int32 operations one K7 launch needs: a and b read and
-    the output written once; each live element of a compared with its
-    row of b up to its first match (all of the row if none), and one
-    select per slot.  The compares are counted in row chunks."""
-    import torch
+    """Bytes and int32 operations the function of one K7 launch needs,
+    the same for any kernel: a and b read and the output written once (12
+    bytes a slot); 4 operations for each live (not INT_INF) slot of b to
+    enter it in a set of the row, 4 for each live slot of a to look it
+    up, and one select per slot."""
     inf = 2**31 - 1
-    nb, cap = a.shape
-    step = max(1, (1 << 24) // (cap * cap))
-    ops = a.numel()
-    for r in range(0, nb, step):
-        x, y = a[r:r + step], b[r:r + step]
-        eq = x[:, :, None] == y[:, None, :]
-        scanned = torch.where(eq.any(2), eq.int().argmax(2) + 1, cap)
-        ops += int(scanned[x != inf].sum())
-    return float(12 * a.numel()), float(ops)
+    live = int((a != inf).sum()) + int((b != inf).sum())
+    return float(12 * a.numel()), float(4 * live + a.numel())
 
 
 def _k6_rows(lists, C: int):
@@ -1030,6 +1055,19 @@ def _searchsorted_intersect(a, b):
     inf = 2**31 - 1
     pos = torch.searchsorted(b, a).clamp(max=b.shape[1] - 1)
     hit = (torch.gather(b, 1, pos) == a) & (a != inf)
+    return torch.where(hit, a, inf)
+
+
+def _isin_intersect(a, b):
+    """The library yardstick of K7 on any rows, sorted or not: one
+    ``torch.isin`` of int64 keys ``row << 32 | (a & 0xFFFFFFFF)`` against
+    the same keys of b, then a select.  Timed beside the kernel, used
+    nowhere in the port."""
+    import torch
+    inf = 2**31 - 1
+    row = torch.arange(a.shape[0], device=a.device)[:, None] << 32
+    hit = torch.isin(row | (a.long() & 0xFFFFFFFF),
+                     row | (b.long() & 0xFFFFFFFF)) & (a != inf)
     return torch.where(hit, a, inf)
 
 
@@ -1246,6 +1284,17 @@ def _aux(lists, res, fi, queries, seed: int) -> dict:
                          "bucket_intersect")
     k7[0]["library_ms"] = _device_ms(
         lambda: _searchsorted_intersect(a7, b7), 100)[0]
+    for row, args, out in ((k7[0], (a7, b7), out7), (k7[1], e7, out7e)):
+        if not torch.equal(_isin_intersect(*args), out):
+            raise SystemExit("[aux] the isin yardstick disagrees with "
+                             "bucket_intersect")
+        row["isin_ms"] = _device_ms(lambda: _isin_intersect(*args), 100)[0]
+    k7[1]["library_ms"] = k7[1]["isin_ms"]
+    print(f"[aux] bucket_intersect beside torch.isin on row-tagged int64 "
+          f"keys: sorted rows {k7[0]['ms']:.5f} ms (isin "
+          f"{k7[0]['isin_ms']:.5f}, searchsorted "
+          f"{k7[0]['library_ms']:.5f}), random rows {k7[1]['ms']:.5f} ms "
+          f"(isin {k7[1]['isin_ms']:.5f})")
     # K8 fits in L2: time it over eight copies of its operands in turn,
     # so that each launch finds its inputs cold, as a caller would
     cold = itertools.cycle([(a8.clone(), b8.clone()) for _ in range(8)])
@@ -1338,6 +1387,17 @@ def _outofcore(res, lists, queries, bags, run5, num_pages, tables1, host1,
           f"{st['overlap_ms']:.1f} ms; pool_grows {rs['pool_grows']} (a "
           f"tick whose working set exceeds the budget grows the pool)")
 
+    def fresh_pass():
+        fresh = QueryServer(res, engine="cuda", device="cuda",
+                            batch_window=CONCURRENCY, codec="repair",
+                            store="mmap", resident_pages=budget)
+        fresh.search_many(queries)
+        fresh.search_topk_many(bags, TOPK)
+
+    _, path = _profile_path(fresh_pass, ["list_intersect"])
+    _print_path("outofcore", f"a fresh out-of-core serve pass (the pass "
+                f"above launched {k1})", path, ["list_intersect"])
+
     rows = []
     for ph in ("ranked", "boolean"):
         rec = run["by_phase"].get(("list_intersect", ph))
@@ -1349,26 +1409,27 @@ def _outofcore(res, lists, queries, bags, run5, num_pages, tables1, host1,
                                   a[1].cpu().numpy())
         poisoned = K1.poison_outside(pool["c_syms_pg"], pool["c_sums_pg"],
                                      kw["slot_of_page"], ws, seed=n)
-        out, row = _hold("list_intersect", K1.list_intersect,
-                         K1.list_intersect_plain, a, kw,
+        out, row = _hold("list_intersect", K1.paged_intersect,
+                         K1.paged_intersect_plain, a, kw,
                          lambda: k1_traffic(lanes, tables1, statics1,
                                             page=store.page_size))
         oracle = _oracle_next_geq(lists, a[0].cpu().numpy(),
                                   a[1].cpu().numpy())
-        full = K1.list_intersect(*lanes, tables1, **statics1)
+        full = K1.paged_intersect(*lanes, tables1, **statics1)
         if not (np.array_equal(out.cpu().numpy(), oracle)
                 and torch.equal(out, full)):
             raise SystemExit(f"[outofcore] K1's resident route disagrees "
                              f"with the oracle or the fully resident route "
                              f"on the largest {ph} launch")
         full_ms = _device_ms(
-            lambda: K1.list_intersect(*lanes, tables1, **statics1), 100)[0]
+            lambda: K1.paged_intersect(*lanes, tables1, **statics1), 100)[0]
         full_bound = _bound(*k1_traffic(lanes, tables1, statics1))[0]
         row = dict(batch=f"resident route: largest out-of-core serve launch "
                    f"({ph} queries), pool of {pool['c_syms_pg'].shape[0]} "
                    f"rows for {store.num_pages} pages, working set "
                    f"{ws.size} pages, {poisoned} rows outside it poisoned",
                    size=n, route="resident", launches=k1,
+                   path_ms=path.get("list_intersect", (None,))[0],
                    fully_resident_ms=full_ms,
                    fully_resident_bound_ms=full_bound,
                    library_ms=_library(lib, a[0], a[1], out), **row)
@@ -1483,7 +1544,7 @@ def main() -> int:
     order, *lanes_np = K1.route_pages(host1, lids, xs)
     lanes = [torch.from_numpy(a).cuda() for a in lanes_np]
     out, k1_bool = _hold(
-        "list_intersect", K1.list_intersect, K1.list_intersect_plain,
+        "list_intersect", K1.paged_intersect, K1.paged_intersect_plain,
         (*lanes, tables1), statics1,
         lambda: k1_traffic(lanes, tables1, statics1))
     oracle = _oracle_next_geq(lists, lids[order], xs[order])
@@ -1593,9 +1654,9 @@ def main() -> int:
     # 5. serve, once per codec; launch counts zeroed just before each run
     queries = boolean_workload(len(lists), lengths,
                                n_queries=BOOLEAN_QUERIES, seed=args.seed)
-    wrappers = {(K1, "list_intersect"): K1.list_intersect,
-                (K2, "page_score"): K2.page_score,
-                (K3, "ef_next_geq"): K3.ef_next_geq}
+    wrappers = {(K1, "paged_intersect"): "list_intersect",
+                (K2, "page_score"): "page_score",
+                (K3, "ef_next_geq"): "ef_next_geq"}
     runs = {"repair": (srv, _serve(srv, queries, bags, lists, res.universe,
                                    wrappers))}
     run = runs["repair"][1]
@@ -1647,8 +1708,8 @@ def main() -> int:
     # beside the searchsorted yardstick for K1 and K3
     lib = _SortedPostings(lists, res.universe)
     n, ph, a, kw = runs["repair"][1]["largest"]["list_intersect"]
-    out, k1_srv = _hold("list_intersect", K1.list_intersect,
-                        K1.list_intersect_plain, a, kw,
+    out, k1_srv = _hold("list_intersect", K1.paged_intersect,
+                        K1.paged_intersect_plain, a, kw,
                         lambda: k1_traffic(a[:4], a[4], kw))
     oracle = _oracle_next_geq(lists, a[0].cpu().numpy(), a[1].cpu().numpy())
     if not np.array_equal(out.cpu().numpy(), oracle):
@@ -1685,6 +1746,8 @@ def main() -> int:
                   library_ms=_library(lib, a[0], a[1], out), **k3_srv)
     _print_hold("ef_next_geq", k3_srv, "lanes",
                 "plain, numpy reference and oracle")
+    print(f"[kernels] ef_next_geq's largest launch, lane layout: "
+          f"{json.dumps(k3_layout(*a))}")
     print(f"[kernels] searchsorted yardstick over the uncompressed postings: "
           f"list_intersect's launch {k1_srv['library_ms']:.5f} ms, "
           f"ef_next_geq's launch {k3_srv['library_ms']:.5f} ms")

@@ -5,8 +5,10 @@
 * ``page_score`` (K2) — block-max page-entry decode of ranked retrieval's
   ScoreRound: a persistent grid over units of 512 live output slots, two
   per thread, and wide stores of the padding.
-* ``ef_next_geq`` (K3) — Elias-Fano ``next_geq`` of the codec tier: the
-  three high-bits selects and the low-bits search, one thread per lane.
+* ``ef_next_geq`` (K3) — Elias-Fano ``next_geq`` of the codec tier, one
+  thread per lane: one full select with its sample page in registers,
+  the other two selects from the bit runs around it, and the low-bits
+  bucket search in registers.
 * ``pair_count`` (K4) — the pair histogram of device Re-Pair
   construction: each block hashes the candidate table into shared memory
   and counts its share of the pair stream; one launch, no sort.
@@ -14,8 +16,8 @@
   output slot descends the grammar, one warp per symbol's row.
 * ``gap_decode`` (K6) — row-wise d-gap decode: one warp per row scans it
   chunk by chunk, the carry in a register.
-* ``bucket_intersect`` (K7) — domain-bucketed intersection: each thread
-  holds one element of ``a`` against its row of ``b`` in shared memory.
+* ``bucket_intersect`` (K7) — domain-bucketed intersection: a hash set of
+  each row of ``b`` in shared memory, one probe per element of ``a``.
 * ``bitmap_and`` (K8) — word-wise AND of two bitmaps and the popcount of
   the result, a grid-stride loop with one atomic add per block.
 

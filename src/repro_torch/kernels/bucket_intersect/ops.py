@@ -17,7 +17,10 @@ reference's ``[:NB, :CAP]``.  This module holds:
   compare of the reference, cut into row chunks so that the (rows, CAP,
   CAP) compare stays bounded;
 * ``bucket_intersect`` — the wrapper, with the contract of
-  ``repro/kernels/bucket_intersect/ops.py:22 bucket_intersect``;
+  ``repro/kernels/bucket_intersect/ops.py:22 bucket_intersect``; the
+  kernel hashes each row of b into shared memory and probes it with a,
+  one warp a row up to CAP 128, one block a row above (b in chunks of
+  4,096 past CAP 4,096), so it takes any int32 (NB, CAP);
 * ``bucketize`` / ``unbucketize`` — the host layout, copies of
   ``repro/kernels/bucket_intersect/ops.py:36`` and ``:59`` (numpy).
 """
@@ -37,9 +40,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 3 + [_I] * 2
 #: compare slots of the plain version's (rows, CAP, CAP) chunk
 _PLAIN_CHUNK = 1 << 24
-#: the kernel's grid holds a row's elements in 128-thread blocks on its y
-#: axis, at most 65,535 of them
-_MAX_CAP = 65535 * 128
 
 
 def bucket_intersect_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -70,9 +70,9 @@ def bucket_intersect(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"bucket_intersect: unsupported device {dev}")
     nb, cap = a.shape
-    if cap > _MAX_CAP or nb >= 2**31:
+    if nb >= 2**31 or cap >= 2**31:
         raise ValueError(f"bucket_intersect: (NB, CAP) = ({nb}, {cap}) "
-                         f"exceeds the kernel's grid")
+                         f"exceeds the kernel's int32 sizes")
     out = torch.empty_like(a)
     if nb and cap:
         launch("bucket_intersect", dev, _ARGTYPES, a.data_ptr(), b.data_ptr(),

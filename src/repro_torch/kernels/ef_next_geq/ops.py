@@ -3,8 +3,12 @@
 The CUDA kernel (``csrc/ef_next_geq.cu``) replaces the TPU kernel
 ``repro/kernels/ef_next_geq/ef_next_geq.py:131 ef_intersect_pallas`` and
 its host router ``repro/kernels/ef_next_geq/ops.py:41 route_low_pages``:
-one thread per lane computes the masks, the three high-bits selects and
-the low-bits bucket search, so there is no router here.  This module
+one thread per lane computes the masks, the high-bits selects (one full
+select, its sample page held in registers, and the other two from the
+bit runs around it) and the low-bits bucket search, so there is no
+router here.
+The kernel reads a sample page as two 16-byte loads where ``hi_words``
+is 16-byte aligned, and word by word where it is not.  This module
 holds:
 
 * ``pad_ef_operands`` — the operand pack of one EF store, built once per

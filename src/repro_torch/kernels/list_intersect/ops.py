@@ -12,15 +12,21 @@ meets them:
   On the card the sort only buys locality — neighbouring threads read
   neighbouring pages — so the TPU's per-tile base pages, page counts and
   128-lane padding are gone;
-* ``list_intersect`` — the wrapper: checks its tensors, launches the
-  kernel on CUDA tensors, runs ``list_intersect_plain`` on CPU tensors;
+* ``paged_intersect`` — the wrapper (the counterpart of
+  ``paged_intersect_pallas``): checks its tensors, launches the kernel on
+  CUDA tensors, runs ``paged_intersect_plain`` on CPU tensors;
 * ``next_geq_paged`` — numpy in, numpy out: route, launch, unsort;
 * ``next_geq_resident`` — the out-of-core route of the same kernel
   (``repro/kernels/list_intersect/ops.py:244``): the stream tables are the
   bounded pool of a :class:`~repro_torch.store.ResidentSet`, and every
   stream read goes through its page -> slot table.  The router and the
   lanes are the same; ``probe_working_set`` (copied) is what the pool
-  faults in before the launch.
+  faults in before the launch;
+* ``next_geq``, ``next_geq_probe`` and ``list_intersect`` — the one-shot
+  surface of ``repro/kernels/list_intersect/ops.py:262``, ``:272`` and
+  ``:284``: a flat or paged index in, its operands packed on the fly on
+  an explicit ``device`` (``"cuda"`` by default; ``"cpu"`` runs the plain
+  version), numpy out.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import check_operands, launch
-from ...core.index import PagedIndex
+from .. import check_operands, launch, resolve_device
+from ...core.index import (INT_INF, FlatIndex, PagedIndex, build_paged_index,
+                           flat_index_from_arrays, index_to_arrays,
+                           paged_index_from_arrays)
 from ...engine.torch_backend import (paged_readers, resident_readers,
                                      skip_descend)
 
@@ -171,9 +179,9 @@ def poison_outside(syms: torch.Tensor, sums: torch.Tensor,
     return int(bad.numel())
 
 
-def list_intersect_plain(lids, xs, pos0, s0, tables: dict, *, max_scan: int,
-                         max_depth: int, T: int,
-                         slot_of_page=None) -> torch.Tensor:
+def paged_intersect_plain(lids, xs, pos0, s0, tables: dict, *,
+                          max_scan: int, max_depth: int, T: int,
+                          slot_of_page=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the fixed-trip-count program of
     ``repro/engine/jnp_backend.py:98 _next_geq_one_paged`` from the
     router's start state — or, given ``slot_of_page``, of its resident
@@ -188,35 +196,36 @@ def list_intersect_plain(lids, xs, pos0, s0, tables: dict, *, max_scan: int,
                         xs=xs, pos=pos0, s=s0)
 
 
-def list_intersect(lids: torch.Tensor, xs: torch.Tensor, pos0: torch.Tensor,
-                   s0: torch.Tensor, tables: dict, *, max_scan: int,
-                   max_depth: int, T: int,
-                   slot_of_page: torch.Tensor | None = None) -> torch.Tensor:
+def paged_intersect(lids: torch.Tensor, xs: torch.Tensor, pos0: torch.Tensor,
+                    s0: torch.Tensor, tables: dict, *, max_scan: int,
+                    max_depth: int, T: int,
+                    slot_of_page: torch.Tensor | None = None) -> torch.Tensor:
     """(Q,) routed lanes -> (Q,) int32 next_geq values, INT_INF where no
     element >= x exists.  ``slot_of_page`` (``(num_pages,)`` int32, -1 =
     absent) selects the resident route: ``c_syms_pg`` / ``c_sums_pg`` are
     then the pool's ``(budget, page)`` rows, and every stream read goes
     through the table.  CUDA tensors launch the kernel; CPU tensors run
-    :func:`list_intersect_plain`; anything else raises."""
+    :func:`paged_intersect_plain`; anything else raises."""
     dev = lids.device
-    check_operands("list_intersect", dev, lids=lids, xs=xs, pos0=pos0, s0=s0,
-                   **{k: tables[k] for k in _TABLES},
+    check_operands("paged_intersect", dev, lids=lids, xs=xs, pos0=pos0,
+                   s0=s0, **{k: tables[k] for k in _TABLES},
                    **({} if slot_of_page is None
                       else {"slot_of_page": slot_of_page}))
     q = lids.shape[0]
     if lids.dim() != 1 or any(t.shape != (q,) for t in (xs, pos0, s0)):
-        raise ValueError("list_intersect: lane arrays must share one (Q,) "
+        raise ValueError("paged_intersect: lane arrays must share one (Q,) "
                          "shape")
     if tables["c_syms_pg"].shape != tables["c_sums_pg"].shape:
-        raise ValueError("list_intersect: paged stream tables differ")
+        raise ValueError("paged_intersect: paged stream tables differ")
     if slot_of_page is not None and slot_of_page.dim() != 1:
-        raise ValueError("list_intersect: slot_of_page must be (num_pages,)")
+        raise ValueError("paged_intersect: slot_of_page must be "
+                         "(num_pages,)")
     if dev.type == "cpu":
-        return list_intersect_plain(lids, xs, pos0, s0, tables,
-                                    max_scan=max_scan, max_depth=max_depth,
-                                    T=T, slot_of_page=slot_of_page)
+        return paged_intersect_plain(lids, xs, pos0, s0, tables,
+                                     max_scan=max_scan, max_depth=max_depth,
+                                     T=T, slot_of_page=slot_of_page)
     if dev.type != "cuda":
-        raise ValueError(f"list_intersect: unsupported device {dev}")
+        raise ValueError(f"paged_intersect: unsupported device {dev}")
     out = torch.empty_like(lids)
     if q:
         page = int(tables["c_syms_pg"].shape[1])
@@ -241,9 +250,9 @@ def next_geq_paged(tables: dict, host: dict, list_ids: np.ndarray,
         return np.zeros(0, np.int32)
     order, *lanes = route_pages(host, list_ids, xs)
     dev = tables["starts"].device
-    out = list_intersect(*(torch.from_numpy(a).to(dev) for a in lanes),
-                         tables, max_scan=max_scan, max_depth=max_depth, T=T,
-                         slot_of_page=slot_of_page)
+    out = paged_intersect(*(torch.from_numpy(a).to(dev) for a in lanes),
+                          tables, max_scan=max_scan, max_depth=max_depth,
+                          T=T, slot_of_page=slot_of_page)
     unsort = np.empty(q, np.int64)
     unsort[order] = np.arange(q)
     return out.cpu().numpy()[unsort]
@@ -262,3 +271,59 @@ def next_geq_resident(tables: dict, host: dict, resident,
     return next_geq_paged(dict(tables, c_syms_pg=syms, c_sums_pg=sums), host,
                           list_ids, xs, max_scan=max_scan,
                           max_depth=max_depth, T=T, slot_of_page=slots)
+
+
+def _as_paged(index: FlatIndex | PagedIndex, device) -> PagedIndex:
+    """``index`` as a paged index on ``device``: packed anew when it lies
+    elsewhere, paged at the default page when it is flat.  A paged index
+    whose stream lives behind a page store is refused: its stream tensors
+    are placeholders (serve it through an engine's ``store=`` or
+    :func:`next_geq_resident`)."""
+    dev = resolve_device(device)
+    if isinstance(index, PagedIndex):
+        if index.store is not None and index.store.kind != "memory":
+            raise ValueError("next_geq: the index's stream lives in a page "
+                             "store; probe it through next_geq_resident")
+        if index.c_syms_pg.device != dev:
+            index = paged_index_from_arrays(*index_to_arrays(index), dev)
+        return index
+    if index.device != dev:
+        index = flat_index_from_arrays(*index_to_arrays(index), dev)
+    return build_paged_index(index)
+
+
+def _numpy(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def next_geq(index: FlatIndex | PagedIndex, list_ids, xs,
+             device="cuda") -> np.ndarray:
+    """One-shot ``next_geq``: (Q,) list ids × (Q,) probes -> (Q,) int32
+    values, INT_INF where no element >= x exists.  Packs the paged
+    operands of ``index`` on ``device`` on the fly and runs K1 there
+    (``"cpu"``: its plain version).  Engines cache the pack instead."""
+    tables, statics, host = pad_paged_operands(_as_paged(index, device))
+    return next_geq_paged(tables, host, _numpy(list_ids).reshape(-1),
+                          _numpy(xs).reshape(-1), **statics)
+
+
+def next_geq_probe(index: FlatIndex | PagedIndex, list_ids, xs,
+                   device="cuda") -> np.ndarray:
+    """Row-wise probe: (B,) list ids × (B, M) probes -> (B, M) next_geq
+    values, in one launch over the flattened rows."""
+    xs = _numpy(xs)
+    B, M = xs.shape
+    flat_ids = np.repeat(_numpy(list_ids).astype(np.int32), M)
+    return next_geq(index, flat_ids, xs.reshape(-1),
+                    device=device).reshape(B, M)
+
+
+def list_intersect(index: FlatIndex | PagedIndex, long_ids, xs,
+                   device="cuda") -> np.ndarray:
+    """Membership filter of a probe matrix against the long lists: keeps
+    ``xs[b, m]`` where it occurs in list ``long_ids[b]``, INT_INF
+    elsewhere (INT_INF padding in ``xs`` never matches)."""
+    xs = _numpy(xs).astype(np.int32)
+    vals = next_geq_probe(index, long_ids, xs, device=device)
+    sent = np.int32(INT_INF)
+    return np.where((vals == xs) & (xs != sent), xs, sent)

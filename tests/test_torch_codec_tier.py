@@ -365,7 +365,7 @@ def test_cuda_engine_routes_ef_lanes_through_k3(corpus, monkeypatch):
     eng = CudaEngine(rt, max_short_len=MAX_SHORT, device="cpu", codec="ef")
     seen = {"ef": [], "repair": []}
     for mod, fn, key in ((K3, "ef_next_geq", "ef"),
-                         (K1, "list_intersect", "repair")):
+                         (K1, "paged_intersect", "repair")):
         wrapped = getattr(mod, fn)
 
         def counting(*a, _w=wrapped, _k=key, **kw):

@@ -17,8 +17,12 @@ installed:
   that wrap int32;
 * ``ef_next_geq`` (K3): edge lanes (absent lists, heads, tails, past the
   tail, negative probes, every bucket boundary) and a random batch over an
-  EF store with ``l == 0`` lists and word-straddling fields — kernel ==
-  plain version == numpy reference == set oracle;
+  EF store with ``l == 0`` lists and word-straddling fields; every probe
+  of dense and clustered lists (selects at word and sample-page
+  boundaries, ``hx - 1`` and ``hx`` in different pages), ``l = 30`` and
+  ``l = 31`` lists at ``INT_MIN`` and ``INT_INF``, and a pack whose
+  high-bits words are an unaligned view — kernel == plain version ==
+  numpy reference == set oracle;
 * ``CudaEngine`` on the card == ``CudaEngine`` on the CPU for probes,
   intersections (short sides longer than one probe row among them) and
   ranked top-k, with every launch counted — and the same under the codec
@@ -44,11 +48,16 @@ installed:
 * ``bitmap_and`` (K8): sizes with and without a scalar tail, unaligned
   operands, all-ones words — AND and total == plain version == numpy;
 * ``bucket_intersect`` (K7): unsorted rows with duplicates and interior
-  ``INT_INF``, a CAP staged in two chunks, bucketized lists — kernel ==
-  plain version == set oracle;
+  ``INT_INF``, CAPs on both sides of the warp / block split, bucketized
+  lists; and the hash-set design's edges: a row of b entered in chunks,
+  values sharing a home slot, all-``INT_INF`` rows, CAP not a multiple
+  of 4, negative values, heavy duplicates — kernel == plain version ==
+  set oracle;
 * ``grammar_expand`` (K5): every symbol of a real grammar at full and cut
   ``max_depth``, terminals only, padded ids — kernel == plain version ==
-  the host stack walk.
+  the host stack walk;
+* K1's one-shot surface (``next_geq``, ``next_geq_probe``,
+  ``list_intersect`` of an index) on the card == with ``device="cpu"``.
 """
 
 import numpy as np
@@ -134,10 +143,10 @@ def test_list_intersect_kernel_matches_plain(card, clists, cres, page):
     order, *lanes = K1.route_pages(host, lids, xs)
     lanes = [torch.from_numpy(a).to(card) for a in lanes]
     n0 = KR.LAUNCHES["list_intersect"]
-    got = K1.list_intersect(*lanes, tables, **statics)
+    got = K1.paged_intersect(*lanes, tables, **statics)
     torch.cuda.synchronize()
     assert KR.LAUNCHES["list_intersect"] == n0 + 1
-    plain = K1.list_intersect_plain(*lanes, tables, **statics)
+    plain = K1.paged_intersect_plain(*lanes, tables, **statics)
     assert torch.equal(got, plain)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   _oracle(clists, lids[order], xs[order]))
@@ -247,13 +256,13 @@ def test_list_intersect_resident_matches_plain(card, rlists, rres, page):
     lanes = [torch.from_numpy(a).to(card) for a in lanes]
     pool = dict(tables, c_syms_pg=syms, c_sums_pg=sums)
     n0 = KR.LAUNCHES["list_intersect"]
-    got = K1.list_intersect(*lanes, pool, slot_of_page=slots, **statics)
+    got = K1.paged_intersect(*lanes, pool, slot_of_page=slots, **statics)
     torch.cuda.synchronize()
     assert KR.LAUNCHES["list_intersect"] == n0 + 1
-    plain = K1.list_intersect_plain(*lanes, pool, slot_of_page=slots,
-                                    **statics)
+    plain = K1.paged_intersect_plain(*lanes, pool, slot_of_page=slots,
+                                     **statics)
     assert torch.equal(got, plain)
-    assert torch.equal(got, K1.list_intersect(*lanes, full, **statics))
+    assert torch.equal(got, K1.paged_intersect(*lanes, full, **statics))
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   _oracle(rlists, lids[order], xs[order]))
 
@@ -804,3 +813,170 @@ def test_page_score_edges(card, k2_res, page, variant):
             np.testing.assert_array_equal(
                 rows[q, :c], lists[int(si.pg_list[q])][lo:lo + c])
             assert (rows[q, c:] == INF).all()
+
+
+# -- K3 redesigned: the sample page in registers, fused selects -------------
+
+def _k3_hold(card, lists, lids, xs, pack=None):
+    """K3 on the card == its plain version == the numpy reference == the
+    set oracle, with one launch."""
+    store = EF.build_ef_store(lists, 2**31 - 1)
+    rank = store.select_samples()
+    pack = K3.pad_ef_operands(store, rank, card) if pack is None else pack
+    lids = np.asarray(lids, np.int32)
+    xs = np.clip(np.asarray(xs, np.int64), -2**31, 2**31 - 1).astype(np.int32)
+    lt, xt = torch.from_numpy(lids).to(card), torch.from_numpy(xs).to(card)
+    got = _counted("ef_next_geq", K3.ef_next_geq, lt, xt, pack)
+    assert torch.equal(got, K3.ef_next_geq_plain(lt, xt, pack))
+    want = EF.ef_next_geq_np(store, rank, lids, xs)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    live = [v if v is not None else np.zeros(0, np.int64) for v in lists]
+    np.testing.assert_array_equal(want, _oracle(live, lids, xs))
+    return store, rank
+
+
+def _k3_every_x(lists, pad=2):
+    """Every probe from pad below a list's head to pad past its tail: every
+    select of every bucket, at every word and sample-page boundary."""
+    lids, xs = [], []
+    for t, v in enumerate(lists):
+        if v is None:
+            continue
+        span = np.arange(int(v[0]) - pad, int(v[-1]) + pad + 1)
+        lids.append(np.full(span.size, t))
+        xs.append(span)
+    return np.concatenate(lids), np.concatenate(xs)
+
+
+def test_ef_next_geq_selects_at_page_boundaries(card):
+    """Dense and clustered lists probed at every x: zero hx - 1 and zero hx
+    in different words and different sample pages (zero 127 of 0..1999 is
+    bit 255, the last of page 0, and zero 128 is bit 257), ones and zeros
+    across pages, buckets spanning words, l = 0 and l = 1 lists."""
+    rng = np.random.default_rng(23)
+    lists = [np.arange(2000), np.arange(0, 6000, 3), np.arange(7, 4000, 2),
+             np.unique(np.concatenate([rng.integers(b, b + 60, 50) for b in
+                                       range(0, 9000, 300)])),
+             np.unique(rng.integers(0, 5000, 2500)),
+             np.unique(rng.integers(0, 40_000, 300))]
+    store, _ = _k3_hold(card, lists, *_k3_every_x(lists))
+    assert store.lbits[0] == 0 and store.lbits[1] == 1
+    assert (store.hi_word[1:] - store.hi_word[:-1]).max() >= 24
+
+
+def test_ef_next_geq_wide_lists_and_extreme_probes(card):
+    """l = 31 (the singleton INT_MAX) and l = 30 lists beside l = 0, probed
+    at INT_MIN, -1, 0, INT_INF, the head, the tail and one past it."""
+    lists = [np.asarray([2**31 - 1]), np.asarray([5, 2**31 - 1]),
+             np.asarray([2**30 + 9]), np.arange(300), None,
+             np.asarray([0]), np.asarray([3, 2**31 - 2])]
+    store = EF.build_ef_store(lists, 2**31 - 1)
+    assert store.lbits[0] == 31 and store.lbits[1] == 30
+    lids, xs = [], []
+    for t, v in enumerate(lists):
+        cand = [-2**31, -1, 0, 1, 2**31 - 1, 2**31 - 2]
+        if v is not None:
+            cand += [v[0], v[0] - 1, v[0] + 1, v[-1], v[-1] - 1, v[-1] + 1]
+        lids += [t] * len(cand)
+        xs += cand
+    _k3_hold(card, lists, lids, xs)
+
+
+def test_ef_next_geq_unaligned_high_words(card):
+    """A pack whose hi_words is an offset view (4 bytes past a 16-byte
+    boundary): the kernel reads the sample page word by word and gives
+    the same answers."""
+    rng = np.random.default_rng(29)
+    lists = [np.unique(rng.integers(0, 9000, int(n))) for n in
+             (3000, 40, 700, 1)] + [np.arange(1000)]
+    store = EF.build_ef_store(lists, 2**31 - 1)
+    rank = store.select_samples()
+    pack = K3.pad_ef_operands(store, rank, card)
+    hw = pack["hi_words"]
+    pack["hi_words"] = torch.cat([hw[:1], hw])[1:]
+    assert pack["hi_words"].is_contiguous()
+    assert pack["hi_words"].data_ptr() % 16 != 0
+    lids = rng.integers(0, len(lists), 20_000)
+    xs = rng.integers(-3, 9100, 20_000)
+    l2, x2 = _k3_every_x(lists[-1:])
+    _k3_hold(card, lists, np.concatenate([lids, l2 + len(lists) - 1]),
+             np.concatenate([xs, x2]), pack=pack)
+
+
+# -- K7 redesigned: a hash set of each row of b -------------------------------
+
+@pytest.mark.parametrize("case", [
+    "chunked", "table_multiples", "block_multiples", "bucketized",
+    "all_inf", "cap_not_mult_4", "negative", "duplicates"])
+def test_bucket_intersect_hash_edges(card, case):
+    """The hash-set design's edges: a row of b past one shared-memory
+    table (b entered in chunks), values that share a home slot
+    (multiples of the 256-slot warp table and of a block's 4,096-slot
+    table; bucketized rows sharing their high bits), all-INT_INF rows,
+    CAP not a multiple of 4 on both sides of the warp / block split,
+    negative values and heavy duplicates — kernel == plain == numpy."""
+    rng = np.random.default_rng(len(case))
+    nb, cap = dict(chunked=(3, 9000), block_multiples=(4, 1500),
+                   cap_not_mult_4=(9, 127)).get(case, (40, 128))
+    draw = lambda lo, hi: rng.integers(lo, hi, (nb, cap))
+    if case == "chunked":
+        a, b = draw(0, 12_000), draw(0, 12_000)
+    elif case == "table_multiples":
+        a, b = draw(-40, 40) * 256, draw(-40, 40) * 256
+    elif case == "block_multiples":
+        a, b = draw(-300, 300) * 4096, draw(-300, 300) * 4096
+    elif case == "bucketized":
+        high = rng.integers(0, 2**24, (nb, 1)) << 7
+        a, b = high + draw(0, 128), high + draw(0, 128)
+    elif case == "all_inf":
+        a, b = draw(0, 50), draw(0, 50)
+        a[::3], b[1::3] = INF, INF
+    elif case == "cap_not_mult_4":
+        a, b = draw(0, 90), draw(0, 90)
+    elif case == "negative":
+        a, b = draw(-2**31, -2**31 + 200), draw(-2**31, -2**31 + 200)
+    else:
+        a, b = draw(0, 3), draw(0, 3)
+    a, b = a.astype(np.int32), b.astype(np.int32)
+    a[rng.random(a.shape) < 0.05] = INF
+    b[rng.random(b.shape) < 0.05] = INF
+    ta, tb = (torch.from_numpy(x).to(card) for x in (a, b))
+    got = _counted("bucket_intersect", K7.bucket_intersect, ta, tb)
+    assert torch.equal(got, K7.bucket_intersect_plain(ta, tb))
+    hit = (a != INF) & np.stack([np.isin(a[r], b[r]) for r in range(nb)])
+    np.testing.assert_array_equal(got.cpu().numpy(), np.where(hit, a, INF))
+    if case == "cap_not_mult_4":
+        t5 = tuple(torch.from_numpy(np.ascontiguousarray(x[:5, :125]))
+                   .to(card) for x in (a, b))
+        assert torch.equal(_counted("bucket_intersect", K7.bucket_intersect,
+                                    *t5), K7.bucket_intersect_plain(*t5))
+
+
+# -- K1's one-shot surface ---------------------------------------------------
+
+def test_one_shot_surface_on_card_matches_cpu(card, clists, cres):
+    """``next_geq``, ``next_geq_probe`` and ``list_intersect`` on the card
+    (K1 launched) equal the same functions with ``device="cpu"``, for a
+    flat index on the CPU and a paged one on the card."""
+    ft = TI.build_flat_index(cres, device="cpu")
+    pt = TI.build_paged_index(TI.build_flat_index(cres, device=card), 128)
+    lids, xs = _lanes(clists, cres.universe, n=2000)
+    rng = np.random.default_rng(31)
+    ids = rng.integers(0, len(clists), 6).astype(np.int32)
+    rows = np.full((6, 64), INF, np.int32)
+    for r in range(6):
+        n = int(rng.integers(1, 64))
+        rows[r, :n] = np.sort(rng.integers(0, cres.universe, n))
+    for index in (ft, pt):
+        n0 = KR.LAUNCHES["list_intersect"]
+        got = K1.next_geq(index, lids, xs)
+        assert KR.LAUNCHES["list_intersect"] == n0 + 1
+        np.testing.assert_array_equal(got, K1.next_geq(index, lids, xs,
+                                                       device="cpu"))
+        np.testing.assert_array_equal(got, _oracle(clists, lids, xs))
+        np.testing.assert_array_equal(
+            K1.next_geq_probe(index, ids, rows),
+            K1.next_geq_probe(index, ids, rows, device="cpu"))
+        np.testing.assert_array_equal(
+            K1.list_intersect(index, ids, rows),
+            K1.list_intersect(index, ids, rows, device="cpu"))

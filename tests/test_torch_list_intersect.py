@@ -162,15 +162,15 @@ def test_wrapper_checks_operands(packs):
     _, _, (tables, statics, _) = packs
     q = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
-        K.list_intersect(q.long(), q, q, q, tables, **statics)
+        K.paged_intersect(q.long(), q, q, q, tables, **statics)
     with pytest.raises(ValueError, match="contiguous"):
-        K.list_intersect(torch.zeros(8, dtype=torch.int32)[::2], q, q, q,
-                         tables, **statics)
+        K.paged_intersect(torch.zeros(8, dtype=torch.int32)[::2], q, q, q,
+                          tables, **statics)
     with pytest.raises(ValueError, match="shape"):
-        K.list_intersect(q, q[:3], q, q, tables, **statics)
+        K.paged_intersect(q, q[:3], q, q, tables, **statics)
     bad = dict(tables, sym_sum=tables["sym_sum"].to(torch.int64))
     with pytest.raises(ValueError, match="sym_sum"):
-        K.list_intersect(q, q, q, q, bad, **statics)
+        K.paged_intersect(q, q, q, q, bad, **statics)
 
 
 def test_plain_version_counts_no_launch(packs, klists, kres):
@@ -181,3 +181,92 @@ def test_plain_version_counts_no_launch(packs, klists, kres):
     lids, xs = _lanes(klists, kres[0].universe, n=16)
     K.next_geq_paged(tables, host, lids, xs, **statics)
     assert KR.LAUNCHES == before
+
+
+# -- the one-shot surface (repro/kernels/list_intersect/ops.py:262-295) -----
+
+@pytest.fixture(scope="module")
+def one_shot(lists, repair_result):
+    """``tests/test_kernels.py``'s K1 corpus in both packages: repro's flat
+    index and the port's, built from the same grammar."""
+    return (JI.build_flat_index(repair_result),
+            TI.build_flat_index(repair_compress(lists), device=CPU))
+
+
+@pytest.mark.parametrize("nq", [1, 100, 128, 300])
+def test_one_shot_next_geq_matches_repro(lists, one_shot, nq):
+    """``next_geq(index, ids, xs, device="cpu")`` == repro's ``next_geq``
+    (Pallas, interpret) == its ``next_geq_ref`` == the searchsorted
+    oracle, at repro's batch sizes."""
+    from repro.kernels.list_intersect.ref import next_geq_ref
+    fj, ft = one_shot
+    rng = np.random.default_rng(nq)
+    lids = rng.integers(0, len(lists), nq).astype(np.int32)
+    xs = rng.integers(0, ft.universe + 100, nq).astype(np.int32)
+    got = K.next_geq(ft, lids, xs, device="cpu")
+    assert got.dtype == np.int32 and got.shape == (nq,)
+    np.testing.assert_array_equal(
+        got, np.asarray(KJ.next_geq(fj, lids, xs, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(next_geq_ref(fj, lids,
+                                                               xs)))
+    np.testing.assert_array_equal(got, _oracle(lists, lids, xs))
+
+
+def test_one_shot_probe_matrix_matches_repro(lists, one_shot):
+    """The (6, 64) membership filter of INT_INF-padded probe rows:
+    ``list_intersect`` and ``next_geq_probe`` == repro's (Pallas,
+    interpret) and ``list_intersect_ref``; the kept values are the set
+    intersection."""
+    from repro.kernels.list_intersect.ref import list_intersect_ref
+    fj, ft = one_shot
+    rng = np.random.default_rng(64)
+    B, M = 6, 64
+    long_ids = rng.integers(0, len(lists), B).astype(np.int32)
+    xs = np.full((B, M), INF, dtype=np.int32)
+    for r in range(B):
+        n = int(rng.integers(1, M))
+        xs[r, :n] = np.sort(rng.integers(0, ft.universe, n))
+    got = K.list_intersect(ft, long_ids, xs, device="cpu")
+    assert got.dtype == np.int32 and got.shape == (B, M)
+    np.testing.assert_array_equal(got, np.asarray(
+        KJ.list_intersect(fj, long_ids, xs, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(
+        list_intersect_ref(fj, long_ids, xs)))
+    np.testing.assert_array_equal(
+        K.next_geq_probe(ft, long_ids, xs, device="cpu"),
+        np.asarray(KJ.next_geq_probe(fj, long_ids, xs, interpret=True)))
+    for r in range(B):
+        kept = got[r][got[r] != INF]
+        np.testing.assert_array_equal(
+            np.unique(kept),
+            np.intersect1d(xs[r][xs[r] != INF], lists[long_ids[r]]))
+
+
+def test_one_shot_takes_a_paged_index(klists, kres):
+    """A ``PagedIndex`` (page 128, skip windows across pages) and a
+    torch tensor of lanes go through as they are: the answers equal
+    repro's on its paged index and the flat input's."""
+    rj, rt = kres
+    pj = JI.build_paged_index(JI.build_flat_index(rj), page_size=128)
+    ft = TI.build_flat_index(rt, device=CPU)
+    pt = TI.build_paged_index(ft, 128)
+    lids, xs = _lanes(klists, rj.universe)
+    got = K.next_geq(pt, torch.from_numpy(lids), xs, device="cpu")
+    np.testing.assert_array_equal(
+        got, np.asarray(KJ.next_geq(pj, lids, xs, interpret=True)))
+    np.testing.assert_array_equal(got, K.next_geq(ft, lids, xs,
+                                                  device="cpu"))
+    np.testing.assert_array_equal(got, _oracle(klists, lids, xs))
+
+
+def test_one_shot_default_device_raises_without_card(one_shot,
+                                                     monkeypatch):
+    """The one-shot functions run on ``"cuda"`` unless told otherwise,
+    and raise where there is no card: no quiet fallback to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, ft = one_shot
+    ids = np.zeros(2, np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        K.next_geq(ft, ids, ids)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        K.list_intersect(ft, ids, ids.reshape(2, 1))

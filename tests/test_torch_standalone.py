@@ -186,7 +186,7 @@ def test_wrappers_refuse_other_devices(tiny_res):
     tables1 = {k: v.to(meta) for k, v in eng._tables.items()}
     lanes = [torch.zeros(8, dtype=torch.int32, device=meta)] * 4
     with pytest.raises(ValueError, match="unsupported device"):
-        K1.list_intersect(*lanes, tables1, **eng._statics)
+        K1.paged_intersect(*lanes, tables1, **eng._statics)
     tables2, statics2 = K2.pad_score_operands(eng.pi)
     tables2 = {k: v.to(meta) for k, v in tables2.items()}
     ents = [torch.zeros(4, dtype=torch.int32, device=meta)] * 6
