@@ -99,6 +99,19 @@ exits non-zero:
    workload is held against its plain version on the same pool and slot
    table, the pool's rows outside the launch's working set poisoned, and
    timed beside the fully resident route on the same lanes.
+10. ingest — the phase-3 index served again by ``QueryServer(engine=
+   "cuda")`` with the segment tier attached (``enable_ingest``: delta
+   budget 256, fanout 4, the cuda builder at ``table_cap=4096``): 2,048
+   new documents of the same law (``zipf_corpus`` at mean length 120,
+   mapped onto the index's list ids) inserted in 8 rounds of 256, the
+   stream ending in a ``flush``; after each round 64 boolean and 16
+   top-10 queries, every answer checked against ``naive_eval`` /
+   ``rank_oracle`` over the base plus the inserted documents.  Counts are
+   zeroed just before the phase and read just after: K1, K2 and K4 must
+   launch, every segment engine must sit on the card, and the stream must
+   flush 8 times and compact at least twice.  Inserts per second, the
+   flushes and compactions and their ms, the segments and each round's
+   q/s and p50 / p95 are printed.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
@@ -145,6 +158,12 @@ BITMAP_UNIVERSE = 1 << 25
 AUX_KBITS = 7
 AUX_KERNELS = ("grammar_expand", "gap_decode", "bucket_intersect",
                "bitmap_and")
+#: phase 10: documents streamed into the served index, in rounds, the
+#: queries checked after each round, and the segment tier's defaults
+#: (``REPRO_DELTA_BUDGET``, ``REPRO_COMPACT_FANOUT``)
+INGEST_DOCS, INGEST_ROUNDS = 2048, 8
+INGEST_BOOLEAN, INGEST_RANKED = 64, 16
+INGEST_BUDGET, INGEST_FANOUT = 256, 4
 
 
 def _nvidia_smi() -> str:
@@ -962,32 +981,69 @@ def _as_int(out):
 
 
 def k5_traffic(syms, tables, max_depth) -> tuple[float, float]:
-    """Bytes and int32 operations one K5 launch needs on these symbols,
-    replaying the descents with the kernel's early exit (a lane stops on
-    a terminal): each symbol read once, the (W, 32) output written once,
-    16 bytes (four tables) for each distinct node a descent visits; 4
-    operations per slot and 6 per descent step."""
+    """Bytes and int32 operations the function of one K5 launch needs on
+    these symbols, the same for any kernel: each symbol read once, its
+    (32,) row written once, 16 bytes (four tables) for each distinct node
+    of the expansions within the cut (an id outside the tables reads
+    nothing); one operation per output slot and
+    4 per node of each symbol's expansion tree within the cut and its 32
+    slots (the split of a node's slots between its children).  The tree
+    is walked by ranges of slots: the slots that reach a node split at
+    ``lens[left]``; a terminal or a node at ``max_depth`` ends its range.
+    Wants are counted in int64 (real grammars never wrap)."""
     import torch
-    left, right, lens = (tables[k] for k in ("sym_left", "sym_right",
-                                             "sym_len"))
-    sym = syms.long().repeat_interleave(32)
-    want = torch.arange(1, 33, device=syms.device).repeat(syms.numel())
-    visited, steps = [torch.unique(sym)], 0
-    for _ in range(max_depth):
-        l = left[sym].long()
-        rule = l >= 0
-        if not bool(rule.any()):
+    S = tables["sym_left"].numel()
+    pad = lambda t, v: torch.cat([t.long(), t.new_full((1,), v).long()])
+    left, right = pad(tables["sym_left"], -1), pad(tables["sym_right"], -1)
+    lens = pad(tables["sym_len"], 1)
+    at = lambda s: torch.where((s >= 0) & (s < S), s, S)
+    sym = at(syms.long())
+    lo = torch.ones_like(sym)
+    n = lens[sym].clamp(0, 32)
+    visited, nodes = [], 0
+    for d in range(max_depth + 1):
+        keep = n > 0
+        sym, lo, n = sym[keep], lo[keep], n[keep]
+        nodes += sym.numel()
+        visited.append(torch.unique(sym))
+        if d == max_depth:
             break
-        steps += int(rule.sum())
-        ll = lens[l.clamp(min=0)].long()
-        go_left = want <= ll
-        sym = torch.where(rule, torch.where(go_left, l, right[sym].long()),
-                          sym)
-        want = torch.where(rule & ~go_left, want - ll, want)
-        visited.append(torch.unique(sym[rule]))
-    nodes = int(torch.unique(torch.cat(visited)).numel())
+        l = left[sym]
+        rule = l >= 0
+        sym, lo, n, l = sym[rule], lo[rule], n[rule], at(l[rule])
+        L = lens[l]
+        nl = (L - lo + 1).clamp(min=0)
+        nl = torch.minimum(nl, n)
+        sym = torch.cat([l, at(right[sym])])
+        lo = torch.cat([lo, lo + nl - L])
+        n = torch.cat([nl, n - nl])
+    distinct = int((torch.unique(torch.cat(visited)) < S).sum())
     w = syms.numel()
-    return float(4 * w + 128 * w + 16 * nodes), float(4 * 32 * w + 6 * steps)
+    return float(4 * w + 128 * w + 16 * distinct), float(32 * w + 4 * nodes)
+
+
+def k5_layout(syms, tables) -> dict:
+    """What a K5 launch's symbols ask of it: the share of the (W, 32)
+    output slots that hold a gap, and the rule depth of the symbols
+    (terminals 0), mean and max."""
+    import torch
+    left, right, lens = (tables[k].long() for k in ("sym_left",
+                                                    "sym_right", "sym_len"))
+    S = left.numel()
+    rules = torch.nonzero(left >= 0).flatten()
+    depth = torch.zeros(S, dtype=torch.long, device=left.device)
+    while True:                  # children precede rules: settles in depth
+        new = depth.clone()
+        new[rules] = 1 + torch.maximum(depth[left[rules]],
+                                       depth[right[rules]])
+        if torch.equal(new, depth):
+            break
+        depth = new
+    x = syms.long()
+    d = depth[x].double()
+    return dict(symbols=int(x.numel()),
+                gap_slots=float(lens[x].clamp(0, 32).sum() / (32 * x.numel())),
+                depth_mean=float(d.mean()), depth_max=int(d.max()))
 
 
 def k7_traffic(a, b) -> tuple[float, float]:
@@ -1268,6 +1324,8 @@ def _aux(lists, res, fi, queries, seed: int) -> dict:
                (cut5, *tabs), dict(max_depth=md // 2),
                lambda: k5_traffic(cut5, tables5, md // 2),
                f"max_depth cut to {md // 2}", int(cut5.numel()))]
+    print(f"[kernels] grammar_expand's main launch, layout: "
+          f"{json.dumps(k5_layout(syms5, tables5))}")
     k7 = [hold("bucket_intersect", K7.bucket_intersect,
                K7.bucket_intersect_plain, (a7, b7), {},
                lambda: k7_traffic(a7, b7),
@@ -1442,6 +1500,125 @@ def _outofcore(res, lists, queries, bags, run5, num_pages, tables1, host1,
     return dict(run=run, rows=rows, stats=rs)
 
 
+def _ingest(res, lists, term_ids, vocab: int, seed: int) -> dict:
+    """Phase 10: streaming ingestion over the phase-3 index on the card.
+    A ``QueryServer(engine="cuda")`` over the served index takes
+    ``INGEST_DOCS`` new documents of the same law (``zipf_corpus`` at mean
+    length 120, its words mapped onto the index's list ids) in
+    ``INGEST_ROUNDS`` rounds, through ``enable_ingest`` at the defaults
+    users run (``INGEST_BUDGET`` 256, ``INGEST_FANOUT`` 4) with the cuda
+    builder at
+    ``table_cap=4096`` (K4 on every flush and compaction); the stream ends
+    with an explicit ``flush``.  After each round, ``INGEST_BOOLEAN``
+    boolean and ``INGEST_RANKED`` top-10 queries over the current corpus,
+    every answer checked against ``naive_eval`` / ``rank_oracle`` over
+    the base plus the inserted documents.  Counts are zeroed just before
+    the phase and read just after: K1, K2 and K4 must launch.  Returns
+    the phase's numbers."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as KR
+    from repro_torch.build import make_builder
+    from repro_torch.index.corpus import zipf_corpus
+    from repro_torch.launch.serve import boolean_workload, ranked_workload
+    from repro_torch.query import naive_eval, rank_oracle
+    from repro_torch.serve import QueryServer
+
+    word_to_list = np.full(vocab, -1, np.int64)
+    word_to_list[np.asarray(term_ids, np.int64)] = np.arange(len(lists))
+    new_docs = []
+    for words in zipf_corpus(num_docs=INGEST_DOCS, vocab_size=vocab,
+                             mean_doc_len=120, seed=seed + 1).doc_terms:
+        ids = word_to_list[words]
+        new_docs.append(np.sort(ids[ids >= 0]))
+    srv = QueryServer(res, engine="cuda", device="cuda",
+                      batch_window=CONCURRENCY, codec="repair")
+    seg = srv.enable_ingest(
+        delta_budget=INGEST_BUDGET, compact_fanout=INGEST_FANOUT,
+        builder=make_builder("cuda", device="cuda",
+                             table_cap=BUILD_TABLE_CAP))
+    compact_ms = [0.0]
+    step = seg.compact_step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        merged = step()
+        if merged:
+            torch.cuda.synchronize()
+            compact_ms[0] += (time.perf_counter() - t0) * 1e3
+        return merged
+    seg.compact_step = timed_step
+    extra: dict[int, list[int]] = {}
+    per_round = INGEST_DOCS // INGEST_ROUNDS
+    rounds, t_insert = [], 0.0
+    KR.reset_launches()
+    for r in range(INGEST_ROUNDS):
+        t0 = time.perf_counter()
+        for d in new_docs[r * per_round:(r + 1) * per_round]:
+            gid = srv.insert(d)
+            for t in d.tolist():
+                extra.setdefault(t, []).append(gid)
+        if r == INGEST_ROUNDS - 1:
+            srv.flush()                   # the stream's end: freeze the tail
+        torch.cuda.synchronize()
+        t_insert += time.perf_counter() - t0
+        n = seg.total_docs
+        cur = [np.concatenate([l, np.asarray(extra.get(t, ()), np.int64)])
+               for t, l in enumerate(lists)]
+        lengths = [len(l) for l in cur]
+        queries = boolean_workload(len(cur), lengths,
+                                   n_queries=INGEST_BOOLEAN,
+                                   seed=seed + 100 + r)
+        bags = ranked_workload(len(cur), lengths, n_queries=INGEST_RANKED,
+                               seed=seed + 100 + r)
+        t0 = time.perf_counter()
+        outs = srv.search_many(queries)
+        t_b = time.perf_counter() - t0
+        lat_b = list(srv.scheduler.latencies)[-len(queries):]
+        t0 = time.perf_counter()
+        ranked = srv.search_topk_many(bags, TOPK)
+        t_r = time.perf_counter() - t0
+        lat_r = list(srv.scheduler.latencies)[-len(bags):]
+        for q, got in zip(queries, outs):
+            if not np.array_equal(got, naive_eval(q, cur, n)):
+                raise SystemExit(f"[ingest] round {r}: boolean answer "
+                                 f"differs: {q}")
+        for bag, got in zip(bags, ranked):
+            docs, scores = rank_oracle(cur, n, bag, TOPK)
+            if not (np.array_equal(got.docs, docs)
+                    and np.array_equal(got.scores, scores)):
+                raise SystemExit(f"[ingest] round {r}: ranked answer "
+                                 f"differs: {bag}")
+        tel = seg.telemetry()
+        rounds.append(dict(
+            docs=n, segments=tel["segments"], flushes=tel["flushes"],
+            compactions=tel["compactions"], bool_qps=len(queries) / t_b,
+            bool_p50=float(np.percentile(lat_b, 50)) * 1e3,
+            bool_p95=float(np.percentile(lat_b, 95)) * 1e3,
+            rank_qps=len(bags) / t_r,
+            rank_p50=float(np.percentile(lat_r, 50)) * 1e3,
+            rank_p95=float(np.percentile(lat_r, 95)) * 1e3))
+    torch.cuda.synchronize()
+    launches = dict(KR.LAUNCHES)
+    tel = seg.telemetry()
+    postings = sum(d.size for d in new_docs)
+    for name in ("list_intersect", "page_score", "pair_count"):
+        if launches[name] == 0:
+            raise SystemExit(f"[ingest] {name} never launched in the "
+                             f"phase: {launches}")
+    if tel["flushes"] < INGEST_ROUNDS or tel["compactions"] < 2:
+        raise SystemExit(f"[ingest] {tel['flushes']} flushes and "
+                         f"{tel['compactions']} compactions: the stream did "
+                         f"not flush and compact as expected")
+    for s in seg.segments:
+        if s.engine is not None and s.engine.device != srv.engine.device:
+            raise SystemExit("[ingest] a segment engine is off the card")
+    return dict(docs=len(new_docs), postings=postings, t_insert=t_insert,
+                compact_ms=compact_ms[0], telemetry=tel, rounds=rounds,
+                launches=launches,
+                layout=[(s.base, s.num_docs, s.gen) for s in seg.segments])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1464,8 +1641,9 @@ def main() -> int:
     from repro_torch.kernels.pair_count import ops as K4
     from repro_torch.kernels.pair_count import pair_count_ref
     from repro_torch.launch import quickstart
-    from repro_torch.launch.serve import (boolean_workload, build_corpus,
-                                          ranked_workload)
+    from repro_torch.core.repair import repair_compress
+    from repro_torch.launch.serve import (boolean_workload, ranked_workload,
+                                          zipf_postings)
     from repro_torch.serve import QueryServer
 
     # 1. device
@@ -1486,7 +1664,8 @@ def main() -> int:
 
     # 3. index
     t0 = time.perf_counter()
-    lists, res = build_corpus(args.num_docs, args.vocab, args.seed)
+    lists, term_ids = zipf_postings(args.num_docs, args.vocab, args.seed)
+    res = repair_compress(lists)
     t_build = time.perf_counter() - t0
     lengths = [len(l) for l in lists]
     srv = QueryServer(res, engine="cuda", device="cuda",
@@ -1862,6 +2041,27 @@ def main() -> int:
     report[0]["shapes"].extend(ooc["rows"])
     report[0]["max_abs_err"] = max(r["max_abs_err"]
                                    for r in report[0]["shapes"])
+
+    # 10. ingest: documents streamed into the phase-3 index on the card
+    ing = _ingest(res, lists, term_ids, args.vocab, args.seed)
+    tel = ing["telemetry"]
+    print(f"[ingest] {ing['docs']} documents ({ing['postings']} postings) "
+          f"into the {len(lists)}-list index in {INGEST_ROUNDS} rounds: "
+          f"{ing['docs'] / ing['t_insert']:.1f} inserts/s (flushes "
+          f"included); {tel['flushes']} flushes in {tel['flush_ms']:.1f} "
+          f"ms, {tel['compactions']} compactions in "
+          f"{ing['compact_ms']:.1f} ms (cuda builder, table_cap "
+          f"{BUILD_TABLE_CAP}); {tel['segments']} segments at the end "
+          f"(base, docs, generation: {ing['layout']}); every answer of "
+          f"every round equal naive_eval / rank_oracle over the current "
+          f"corpus; launches in the phase {ing['launches']}")
+    for r, row in enumerate(ing["rounds"]):
+        print(f"[ingest]   round {r}: {row['docs']} docs, "
+              f"{row['segments']} segments, {row['flushes']} flushes, "
+              f"{row['compactions']} compactions; boolean "
+              f"{row['bool_qps']:.1f} q/s, p50 {row['bool_p50']:.2f} / p95 "
+              f"{row['bool_p95']:.2f} ms; ranked {row['rank_qps']:.1f} q/s, "
+              f"p50 {row['rank_p50']:.2f} / p95 {row['rank_p95']:.2f} ms")
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

@@ -119,6 +119,12 @@ def flat_index_arrays(res: RePairResult, B: int = 8,
         pools.append(np.unique(g.rules.reshape(-1)))
     used = np.unique(np.concatenate(pools))
     term_values = used[used < nt].astype(np.int64)
+    # every list a single posting (a segment flushed from one document)
+    # leaves the stream empty; the device programs gather from the stream
+    # and the tables, so both get one terminal that no list span reads
+    empty = res.seq.size == 0
+    if empty:
+        term_values = np.zeros(1, np.int64)
     T = term_values.size
     S = T + R
 
@@ -133,7 +139,8 @@ def flat_index_arrays(res: RePairResult, B: int = 8,
         sym_sum[T:] = g.sums.astype(np.int32)
         sym_len[T:] = g.lengths.astype(np.int32)
 
-    c_dense = _dense_remap(res.seq, term_values, nt)
+    c_dense = (np.zeros(1, np.int32) if empty else
+               _dense_remap(res.seq, term_values, nt))
 
     bs = bsamp or build_b_sampling(res, B)
     kbits = np.asarray(bs.kbits, dtype=np.int32)

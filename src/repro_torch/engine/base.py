@@ -425,19 +425,27 @@ class Engine(abc.ABC):
 
     def decode_list(self, i: int) -> np.ndarray:
         """Full expansion of one list to sorted int64 doc ids (cached —
-        the boolean executor's merge/union/complement operands).  The
-        cache is a bounded LRU keyed on ``(index_version, i)``; the
-        cached array is returned by reference and frozen: an accidental
-        in-place mutation by a caller raises instead of silently
-        corrupting every later query that touches the list."""
-        i = int(i)
-        key = (self.index_version, i)
-        out = self._decoded.get(key)
-        if out is None:
-            out = self._decode_list(i)
-            out.flags.writeable = False
-            self._decoded.put(key, out)
-        return out
+        the boolean executor's merge/union/complement operands)."""
+        return self.decode_lists([i])[0]
+
+    def decode_lists(self, ids) -> list[np.ndarray]:
+        """:meth:`decode_list` of each id.  The cache is a bounded LRU
+        keyed on ``(index_version, i)``; a cached array is returned by
+        reference and frozen: an accidental in-place mutation by a caller
+        raises instead of silently corrupting every later query that
+        touches the list.  The ids not cached yet go to
+        :meth:`_decode_lists` in one call."""
+        ids = [int(i) for i in ids]
+        got = {i: self._decoded.get((self.index_version, i)) for i in ids}
+        missing = [i for i, arr in got.items() if arr is None]
+        for i, arr in zip(missing, self._decode_lists(missing)):
+            arr.flags.writeable = False
+            self._decoded.put((self.index_version, i), arr)
+            got[i] = arr
+        return [got[i] for i in ids]
+
+    def _decode_lists(self, ids: list[int]) -> list[np.ndarray]:
+        return [self._decode_list(i) for i in ids]
 
     def _decode_list(self, i: int) -> np.ndarray:
         return self.res.decode_list(i)

@@ -263,14 +263,35 @@ class DeviceEngine(Engine):
         rows = max(1, -(-int(self.lengths[i]) // m))
         return self._expand([i], rows * m).reshape(rows, m)
 
-    def _decode_list(self, i: int) -> np.ndarray:
-        """Whole-list decode via the device positional-descent expansion.
-        ``max_len`` is the length rounded up to a power of two, so the
-        program sees O(log max-length) shapes."""
+    def _bucket(self, i: int) -> int:
+        """Expansion width of list ``i``: its length rounded up to a power
+        of two, so the program sees O(log max-length) shapes."""
         n = int(self.lengths[i])
-        bucket = max(16, 1 << (max(1, n - 1)).bit_length())
-        row = self._expand([i], bucket)
-        return self.compact(row[0].cpu().numpy())
+        return max(16, 1 << (max(1, n - 1)).bit_length())
+
+    #: slots one batched expansion of :meth:`_decode_lists` holds at once
+    DECODE_BATCH_SLOTS = 1 << 22
+
+    def _decode_lists(self, ids: list[int]) -> list[np.ndarray]:
+        """Whole-list decode via the device positional-descent expansion,
+        the lists of one width expanded together (a segment's whole
+        vocabulary costs a few programs, not one per list).  Each row is
+        the program's per-list output, so batching changes no array.  Out
+        of core each list is expanded alone, so the pool holds one list's
+        pages at a time."""
+        widths: dict[int, list[int]] = {}
+        for i in ids:
+            widths.setdefault(self._bucket(i), []).append(i)
+        got: dict[int, np.ndarray] = {}
+        for width, group in sorted(widths.items()):
+            step = (1 if self.resident is not None
+                    else max(1, self.DECODE_BATCH_SLOTS // width))
+            for k in range(0, len(group), step):
+                chunk = group[k:k + step]
+                rows = self._expand(chunk, width).cpu().numpy()
+                for i, row in zip(chunk, rows):
+                    got[i] = self.compact(row)
+        return [got[i] for i in ids]
 
     def intersect_pairs(self, pairs: Sequence[tuple[int, int]]
                         ) -> list[np.ndarray]:

@@ -255,6 +255,9 @@ def build_bys_table(fi: FlatIndex) -> torch.Tensor:
     # per-position offset so each span's cumsum restarts at its first value
     before = np.where(starts[:-1] > 0, cs[np.maximum(starts[:-1] - 1, 0)], 0)
     offset = np.repeat(firsts - before, span_lens)
+    # an empty stream is padded with one symbol that no span covers
+    # (``core.index.flat_index_arrays``)
+    offset = np.pad(offset, (0, cs.size - offset.size))
     return torch.from_numpy((cs + offset).astype(np.int32)).to(fi.device)
 
 

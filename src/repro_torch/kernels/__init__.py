@@ -12,8 +12,9 @@
 * ``pair_count`` (K4) — the pair histogram of device Re-Pair
   construction: each block hashes the candidate table into shared memory
   and counts its share of the pair stream; one launch, no sort.
-* ``grammar_expand`` (K5) — positional phrase expansion: one thread per
-  output slot descends the grammar, one warp per symbol's row.
+* ``grammar_expand`` (K5) — positional phrase expansion: a warp takes 8
+  rows spread over the stream, deals the slots below their rules to its
+  lanes (one descent each), and stores each row as one 128-byte line.
 * ``gap_decode`` (K6) — row-wise d-gap decode: one warp per row scans it
   chunk by chunk, the carry in a register.
 * ``bucket_intersect`` (K7) — domain-bucketed intersection: a hash set of

@@ -32,7 +32,14 @@ card):
 * ``--refreshes N``: grow the collection N times by ``GROWTH_DOCS``
   documents of a ``PostingsSource`` (new documents only), rebuild it with
   the same builder, hot-swap it in (``QueryServer.rebuild``) and check 8
-  conjunctions against ``np.intersect1d`` after each swap.
+  conjunctions against ``np.intersect1d`` after each swap;
+* ``--ingest-rate N``: stream N documents a round, for 6 rounds, into a
+  fresh coverage corpus served by the same engine through the segmented
+  index (``QueryServer.enable_ingest``, delta budget
+  ``REPRO_DELTA_BUDGET``, else 12, fanout 2), each round's boolean and
+  top-10 answers held to ``naive_eval`` / ``rank_oracle`` over the
+  current corpus (the interleaved == rebuild-from-scratch gate), and
+  print the segment telemetry.
 
 ``boolean_workload`` and ``ranked_workload`` are copies of the JAX
 package's ``benchmarks/common.py`` generators (same Zipf law over the
@@ -135,7 +142,8 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
                   seed: int = 0, codec: str | None = None,
                   builder: str = "host", refreshes: int = 0,
                   store: str | None = None,
-                  resident_pages: int | None = None) -> None:
+                  resident_pages: int | None = None,
+                  ingest_rate: int = 0) -> None:
     from ..build import make_builder
     from ..kernels import resolve_device
     from ..serve.query_serve import QueryServer
@@ -277,6 +285,69 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
                   f"rebuilt [{builder}] + swapped in {dt:.2f}s (index "
                   f"version {srv.version}), serving verified")
 
+    if ingest_rate:
+        # streaming ingestion: documents insert one at a time through the
+        # segmented index — visible at once, flushed into immutable Re-Pair
+        # segments past the delta budget, compacted by the scheduler —
+        # while every round's answers are held to a rebuild-from-scratch
+        # oracle
+        import os
+        from ..data import PostingsSource
+        from ..query import naive_eval, rank_oracle
+        from ..query.parser import parse
+
+        cvocab = 96
+        isrc = PostingsSource(base_docs=48, growth_docs=16, vocab=cvocab,
+                              mean_doc_len=16, seed=seed)
+        # a coverage head doc (every term) pins global term id == dense
+        # list index on both the segmented and the rebuilt side
+        docs = [np.arange(cvocab, dtype=np.int64)]
+        docs += [isrc.doc_terms(d) for d in range(47 + 6 * ingest_rate)]
+
+        def inv_of(ds):
+            iv: dict[int, list[int]] = {}
+            for d, terms in enumerate(ds):
+                for t in terms.tolist():
+                    iv.setdefault(int(t), []).append(d)
+            return [np.asarray(iv[t], np.int64) for t in sorted(iv)]
+
+        srv2 = QueryServer(bld.build_grammar(inv_of(docs[:48])),
+                           max_short_len=256, engine=engine, device=device,
+                           batch_window=batch_window, codec=codec,
+                           store=store, resident_pages=resident_pages)
+        budget = int(os.environ.get("REPRO_DELTA_BUDGET", "12"))
+        srv2.enable_ingest(delta_budget=budget, compact_fanout=2,
+                           builder=bld)
+        qgen = np.random.default_rng(seed + 5)
+        pos, checked = 48, 0
+        t0 = time.perf_counter()
+        for _ in range(6):
+            for _ in range(ingest_rate):
+                srv2.insert(docs[pos])
+                pos += 1
+            lists2, n2 = inv_of(docs[:pos]), pos
+            ts = sorted(qgen.choice(cvocab, 3, replace=False).tolist())
+            qs = [f"{ts[0]} AND {ts[1]}",
+                  f"({ts[0]} AND {ts[1]}) OR NOT {ts[2]}"]
+            for qstr, got in zip(qs, srv2.search_many(qs)):
+                np.testing.assert_array_equal(
+                    got, naive_eval(parse(qstr, None), lists2, n2))
+            rr = srv2.search_topk(ts, 10)
+            od, osc = rank_oracle(lists2, n2, ts, 10)
+            np.testing.assert_array_equal(rr.docs, od)
+            np.testing.assert_array_equal(rr.scores, osc)
+            checked += len(qs) + 1
+        dt = time.perf_counter() - t0
+        st = srv2.serve_stats()
+        print(f"ingest: {pos - 48} docs streamed ({ingest_rate}/round, "
+              f"delta budget {budget}, builder {builder}) interleaved with "
+              f"{checked} verified queries in {dt:.2f}s")
+        print(f"  segments {st['segments']}, delta_docs {st['delta_docs']}"
+              f", flushes {st['flushes']} ({st['flush_ms']:.1f} ms), "
+              f"compactions {st['compactions']}")
+        print("ingest gate OK: interleaved insert/search == "
+              "rebuild-from-scratch (boolean + top-k, exact scores)")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -326,13 +397,19 @@ def main() -> None:
     ap.add_argument("--resident-pages", type=int, default=None,
                     help="admission-cache budget in pages (default: all "
                          "pages, or REPRO_RESIDENT_PAGES)")
+    ap.add_argument("--ingest-rate", type=int, default=0,
+                    help="stream this many inserted docs per round "
+                         "through the segmented index, interleaved with "
+                         "oracle-verified boolean + top-k queries "
+                         "(0 = skip)")
     args = ap.parse_args()
     serve_queries(args.n, args.engine, device=args.device, query=args.query,
                   concurrency=args.concurrency, topk=args.topk,
                   batch_window=args.batch_window, num_docs=args.num_docs,
                   vocab=args.vocab, seed=args.seed, codec=args.codec,
                   builder=args.builder, refreshes=args.refreshes,
-                  store=args.store, resident_pages=args.resident_pages)
+                  store=args.store, resident_pages=args.resident_pages,
+                  ingest_rate=args.ingest_rate)
 
 
 if __name__ == "__main__":

@@ -45,7 +45,15 @@ served through a bounded admission cache of ``resident_pages`` pages
 so the version pin extends to the page cache: in-flight queries hold the
 old engine, hence the old pool.
 
-Not ported yet: ``mesh`` sharding and streaming ingestion.
+**Streaming ingestion**: ``enable_ingest`` attaches a segmented
+log-structured index (:mod:`repro_torch.segment`) over the live engine:
+``insert(doc)`` is visible to the next query, the delta flushes into
+immutable Re-Pair segments past ``delta_budget`` documents, and the
+scheduler runs one compaction step per tick.  Every segment engine is
+made with the serving engine's own construction knobs, so on the card
+each segment is served by the same kernels, on the same device.
+
+Not ported yet: ``mesh`` sharding.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ import numpy as np
 from ..build import BuildConfig, Builder, make_builder
 from ..core.index import DEFAULT_PAGE
 from ..core.repair import RePairResult
-from ..engine import make_engine
+from ..engine import Engine, make_engine
 from ..kernels import resolve_device
 from ..query import Node, PlanNode, QueryExecutor
 from ..query.plan import explain as explain_plan
@@ -90,6 +98,7 @@ class QueryServer:
         self._engine_kwargs = kwargs
         self._batch_window = batch_window
         self._scheduler: QueryScheduler | None = None
+        self._segmented = None
         self.version = -1               # first swap_index brings it to 0
         self.swap_index(res)
 
@@ -106,6 +115,10 @@ class QueryServer:
         engine.index_version = self.version
         self.res, self.engine = res, engine
         self._executor = None   # planner stats are per-index
+        # a segmented manager wraps the OLD engine as its base segment —
+        # a full-index swap supersedes it (call enable_ingest again to
+        # resume streaming on the new index)
+        self._segmented = None
         if self._scheduler is not None:
             self._scheduler.swap(engine, self.version)
 
@@ -187,6 +200,66 @@ class QueryServer:
         ``force_algo`` pins every conjunctive step ("merge"/"svs"/"bys"/
         "meld"); default lets the cost model choose per step."""
         return self.scheduler.search_many([q], force_algo)[0]
+
+    # -- streaming ingestion -------------------------------------------------
+
+    def _segment_engine(self, res: RePairResult) -> Engine:
+        """Engine factory for flushed and compacted segments: the SAME
+        backend and construction knobs as the serving engine (device,
+        codec tier, page size, out-of-core store), so every segment gets
+        its own decode LRU and, out of core, its own page store and
+        resident pool."""
+        return make_engine(self._engine_name, res, **self._engine_kwargs)
+
+    def enable_ingest(self, *, delta_budget: int | None = None,
+                      builder: str | Builder = "host",
+                      build_cfg: BuildConfig | None = None,
+                      compact_fanout: int | None = None):
+        """Attach a segmented log-structured index over the live engine
+        and route queries through it: ``insert(doc)`` becomes visible to
+        the next submitted query, the delta flushes into immutable
+        Re-Pair segments past ``delta_budget`` documents
+        (``REPRO_DELTA_BUDGET``), and the scheduler runs one generational
+        compaction step per tick in the background.  A builder named by
+        string runs on the server's device.  Idempotent; a subsequent
+        ``swap_index``/``rebuild`` detaches it."""
+        if self._segmented is None:
+            from ..segment import SegmentedIndex
+            if not isinstance(builder, Builder):
+                builder = make_builder(builder, build_cfg,
+                                       device=self._device)
+            self._segmented = SegmentedIndex(
+                self.res, self.engine, self._segment_engine,
+                builder=builder, delta_budget=delta_budget,
+                compact_fanout=compact_fanout)
+            self.scheduler.segmented = self._segmented
+        return self._segmented
+
+    @property
+    def segmented(self):
+        """The attached segment manager, or None outside ingest mode."""
+        return self._segmented
+
+    def insert(self, terms) -> int:
+        """Insert one document (its sorted unique term ids); returns the
+        global doc id.  Enables ingest mode on first use."""
+        if self._segmented is None:
+            self.enable_ingest()
+        return self._segmented.insert(terms)
+
+    def flush(self):
+        """Force the delta tier into an immutable segment now (normally
+        budget-triggered); returns the new segment, or None if empty."""
+        if self._segmented is None:
+            return None
+        return self._segmented.flush()
+
+    def compact(self) -> int:
+        """Run generational compaction to quiescence (normally the
+        scheduler amortizes one step per tick); returns steps merged."""
+        if self._segmented is None:
+            return 0
+        return self._segmented.compact()
 
     # -- ranked retrieval -----------------------------------------------------
 

@@ -55,9 +55,18 @@ installed:
   set oracle;
 * ``grammar_expand`` (K5): every symbol of a real grammar at full and cut
   ``max_depth``, terminals only, padded ids — kernel == plain version ==
-  the host stack walk;
+  the host stack walk; and the slot-dealing design's edges: hand-made
+  tables with lens that disagree with the children's (wants that wrap),
+  phrases of 33-64 gaps, a cut at every depth, ids -1, S and S + 5, W no
+  multiple of a block's 32 rows; the smoke's shapes (373,111, 100,003 at
+  half depth and 1,037 symbols) over a real grammar;
 * K1's one-shot surface (``next_geq``, ``next_geq_probe``,
-  ``list_intersect`` of an index) on the card == with ``device="cpu"``.
+  ``list_intersect`` of an index) on the card == with ``device="cpu"``;
+* streaming ingestion: interleaved insert and search through a
+  ``QueryServer(engine="cuda")`` on the card, flushed and compacted by the
+  cuda builder (K4), a segment of one document among them (an empty
+  stream) — every answer == the rebuild-from-scratch oracle, and K1 and
+  K2 launched by the segment engines.
 """
 
 import numpy as np
@@ -508,6 +517,81 @@ def test_rebuild_on_card(card, zipf_lists, cres):
     assert KR.LAUNCHES["page_score"] > n0["page_score"]
 
 
+def test_interleaved_ingest_on_card(card):
+    """Streaming ingestion on the card: every answer of every step equals
+    the oracle over the current corpus; flushes and compactions build on
+    the card (K4); the segment engines are cuda engines on the card and
+    launch K1 and K2 themselves."""
+    from repro_torch.build import make_builder
+    from repro_torch.data import PostingsSource
+    from repro_torch.query import rank_oracle
+    from repro_torch.query.ast import And, Not, Or, Term
+    from repro_torch.serve import QueryServer
+    vocab = 64
+    src = PostingsSource(base_docs=16, growth_docs=8, vocab=vocab,
+                         mean_doc_len=12, seed=17)
+    docs = [np.arange(vocab, dtype=np.int64)] + [src.doc_terms(d)
+                                                  for d in range(63)]
+
+    def invert(ds):
+        inv = {}
+        for d, terms in enumerate(ds):
+            for t in terms.tolist():
+                inv.setdefault(int(t), []).append(d)
+        return [np.asarray(inv[t], np.int64) for t in sorted(inv)]
+
+    srv = QueryServer(repair_compress(invert(docs[:24])), max_short_len=64,
+                      engine="cuda", device=card)
+    seg = srv.enable_ingest(delta_budget=6, compact_fanout=2,
+                            builder=make_builder("cuda", device=card,
+                                                 table_cap=4096))
+    k4 = KR.LAUNCHES["pair_count"]
+    srv.insert(docs[24])
+    assert srv.flush().res.seq.size == 0        # one document: no stream
+    rng = np.random.default_rng(1)
+    for i, d in enumerate(docs[25:]):
+        srv.insert(d)
+        lists, n = invert(docs[:26 + i]), 26 + i
+        a, b, c = (int(t) for t in rng.choice(vocab, 3, replace=False))
+        qs = [And((Term(a), Term(b))), Or((Term(a), Not(Term(c))))]
+        for q, got in zip(qs, srv.search_many(qs)):
+            np.testing.assert_array_equal(got, naive_eval(q, lists, n))
+        ts = sorted(int(t) for t in rng.choice(vocab, 4, replace=False))
+        rr = srv.search_topk(ts, 10)
+        od, osc = rank_oracle(lists, n, ts, 10)
+        np.testing.assert_array_equal(rr.docs, od)
+        np.testing.assert_array_equal(rr.scores, osc)
+    t = seg.telemetry()
+    assert t["flushes"] >= 5 and t["compactions"] >= 1, t
+    assert KR.LAUNCHES["pair_count"] > k4
+    # the segment engines' own launches
+    by_segments = dict.fromkeys(("list_intersect", "page_score"), 0)
+
+    def counted(fn, name):
+        def run(*a, **kw):
+            n0 = KR.LAUNCHES[name]
+            out = fn(*a, **kw)
+            by_segments[name] += KR.LAUNCHES[name] - n0
+            return out
+        return run
+    for s in seg.segments[1:]:
+        assert isinstance(s.engine, CudaEngine) and s.engine.device == card
+        s.engine._next_geq_dev = counted(s.engine._next_geq_dev,
+                                         "list_intersect")
+        s.engine.decode_page_batch = counted(s.engine.decode_page_batch,
+                                             "page_score")
+    lists, n = invert(docs), len(docs)
+    qs = [And((Term(0), Term(int(t)))) for t in range(1, 9)]
+    for q, got in zip(qs, srv.search_many(qs, force_algo="svs")):
+        np.testing.assert_array_equal(got, naive_eval(q, lists, n))
+    rr = srv.search_topk([0, 1, 2, 3], 10)
+    od, osc = rank_oracle(lists, n, [0, 1, 2, 3], 10)
+    np.testing.assert_array_equal(rr.docs, od)
+    np.testing.assert_array_equal(rr.scores, osc)
+    assert by_segments["list_intersect"] > 0, by_segments
+    assert by_segments["page_score"] > 0, by_segments
+
+
 def _counted(name, fn, *args, **kw):
     """Run a wrapper on card tensors; it must launch its kernel once."""
     n0 = KR.LAUNCHES[name]
@@ -634,6 +718,78 @@ def test_grammar_expand_kernel_terminals_only(card):
     got = _counted("grammar_expand", K5.grammar_expand, syms, *tabs,
                    max_depth=4)
     assert torch.equal(got[:, 0], syms * 3) and not got[:, 1:].any()
+
+
+def _k5_hand_tables():
+    """Terminals 0-7, a left-deep chain of rules (depth 7), and rules of
+    16, 25, 32, 33, 41, 57 and 64 gaps over it (the tables of
+    ``tests/test_torch_kernels.py::_hand_tables``)."""
+    sums, left, right, lens = [3, 1, 4, 1, 5, 9, 2, 6], [-1] * 8, [-1] * 8, \
+        [1] * 8
+
+    def rule(l, r):
+        left.append(l)
+        right.append(r)
+        sums.append(sums[l] + sums[r])
+        lens.append(lens[l] + lens[r])
+        return len(left) - 1
+
+    x = rule(0, 1)
+    for t in range(2, 8):
+        x = rule(x, t)
+    y = rule(3, x)
+    a = rule(x, x)
+    b = rule(a, y)
+    c = rule(b, a)
+    rule(c, a)
+    e = rule(a, a)
+    rule(e, 5)
+    rule(e, e)
+    return [np.asarray(t, np.int32) for t in (left, right, sums, lens)]
+
+
+@pytest.mark.parametrize("lens_case", ["consistent", "disagree"])
+def test_grammar_expand_kernel_hand_tables(card, lens_case):
+    """Every symbol of the hand-made tables, ids outside them, at every
+    depth; W = 269, no multiple of a warp's 8 rows or a block's 32."""
+    left, right, sums, lens = _k5_hand_tables()
+    S = lens.size
+    if lens_case == "disagree":
+        rng = np.random.default_rng(18)
+        odd = rng.choice(S, size=S // 2, replace=False)
+        lens[odd] = rng.choice(np.array(
+            [-7, 0, 1, 2, 5, 31, 33, 40, 2**31 - 1, -2**31, -2**31 + 3],
+            np.int64), size=odd.size).astype(np.int32)
+    rng = np.random.default_rng(7)
+    syms = np.concatenate([np.arange(S), [-1, S, S + 5],
+                           rng.integers(0, S, 269 - S - 3)]
+                          ).astype(np.int32)
+    assert syms.size % 8 and syms.size % 32
+    tabs = [torch.from_numpy(t).to(card) for t in (left, right, sums, lens)]
+    x = torch.from_numpy(syms).to(card)
+    for depth in range(0, 12):
+        got = _counted("grammar_expand", K5.grammar_expand, x, *tabs,
+                       max_depth=depth)
+        assert torch.equal(got, K5.grammar_expand_plain(x, *tabs,
+                                                        max_depth=depth))
+        assert not got[S:S + 3].any()
+
+
+@pytest.mark.parametrize("W, half", [(373_111, False), (100_003, True),
+                                     (1_037, False)])
+def test_grammar_expand_kernel_smoke_shapes(card, cres, W, half):
+    """The smoke's three launches' shapes over a real grammar's symbols:
+    the main launch, the cut one at half depth and a small one."""
+    fi = TI.build_flat_index(cres, device=card)
+    tabs = [fi.sym_left, fi.sym_right, fi.sym_sum, fi.sym_len]
+    depth = fi.max_depth // 2 if half else fi.max_depth
+    S = int(fi.sym_len.numel())
+    syms = torch.from_numpy(np.random.default_rng(W).integers(
+        0, S, W).astype(np.int32)).to(card)
+    got = _counted("grammar_expand", K5.grammar_expand, syms, *tabs,
+                   max_depth=depth)
+    assert torch.equal(got, K5.grammar_expand_plain(syms, *tabs,
+                                                    max_depth=depth))
 
 
 # -- K4's hash-table design at its edges --------------------------------------

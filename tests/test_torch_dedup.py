@@ -9,6 +9,9 @@ out-of-core (~10% resident budget) serving, and equals the oracle.  The
 queries are the JAX package's seeded random ASTs, rebuilt as the port's
 nodes.
 
+Interleaved ingestion with dedup and the memo on equals a rebuild from
+scratch after every insert, on every engine (``test_dedup.py:256``).
+
 Plus the behaviour pins: the probe memo flushes on ``swap_index``, the
 prefetch thread is joined before its pages are used and never outlives a
 drained workload, prefetch admission never grows the pool, a
@@ -269,6 +272,49 @@ def test_memo_flush_on_swap(dlists, dres):
     np.testing.assert_array_equal(srv.search(q, force_algo="svs"),
                                   want_new)
     assert not np.array_equal(want_old, want_new)
+
+
+@pytest.mark.parametrize("ename", ENGINE_CONFIGS)
+def test_segmented_ingest_bit_identity(ename):
+    """Interleaved insert/search with dedup and the memo on matches the
+    rebuilt-from-scratch oracle after EVERY insert — the epoch pin: a
+    memoized probe can never leak a pre-insert answer (delta answers are
+    host-evaluated; segment engines are immutable)."""
+    vocab = 40
+    docs = [np.arange(vocab, dtype=np.int64)] + [
+        np.unique(np.random.default_rng(SEED + 60 + i)
+                  .integers(0, vocab, size=8))
+        for i in range(14)]
+
+    def invert(ds):
+        inv = {}
+        for d, terms in enumerate(ds):
+            for t in terms.tolist():
+                inv.setdefault(int(t), []).append(d)
+        return [np.asarray(inv[t], np.int64) for t in sorted(inv)]
+
+    kw = {"host": {}, "torch": dict(device="cpu"),
+          "torch_paged": dict(device="cpu", paged=True, page_size=PAGE),
+          "cuda": dict(device="cpu", page_size=PAGE)}[ename]
+    res = repair_result_from_arrays(
+        *repair_result_to_arrays(repair_jax(invert(docs[:8]))))
+    srv = QueryServer(res, engine="torch" if ename == "torch_paged"
+                      else ename, **kw)
+    _on(srv.engine)
+    srv.enable_ingest(delta_budget=2, compact_fanout=2)
+    rng = np.random.default_rng(SEED + 2)
+    for i, d in enumerate(docs[8:]):
+        srv.insert(d)
+        for seg in srv.segmented.segments:
+            _on(seg.engine)
+        cur = invert(docs[:9 + i])
+        a, b = (int(t) for t in rng.choice(vocab, 2, replace=False))
+        q = And((Term(a), Term(b)))
+        # same query twice: the second submit exercises reuse paths
+        for got in srv.search_many([q, q]):
+            np.testing.assert_array_equal(
+                got, naive_eval(q, cur, len(docs[:9 + i])))
+    assert srv.serve_stats()["flushes"] >= 2
 
 
 # -- dedup telemetry pins ----------------------------------------------------

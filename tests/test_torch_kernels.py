@@ -15,7 +15,9 @@ port:
   multiple, ``bucketize`` / ``unbucketize`` equal to ``repro``'s;
 * ``grammar_expand`` (K5): a real grammar against the ref and the host
   expansion, terminals only, a ``max_depth`` cut short of the grammar's
-  depth, W and S that are no tile multiple.
+  depth, W and S that are no tile multiple; and hand-made tables: lens
+  that disagree with the children's, phrases of 33-64 gaps cut at 32, a
+  cut at every depth from 0 to ``max_depth``, ids -1, S and S + 5.
 """
 
 import numpy as np
@@ -410,3 +412,86 @@ def test_grammar_expand_refuses_bad_operands(grammar):
                        t[2], t[3], max_depth=max_depth)
     with pytest.raises(ValueError, match="max_depth"):
         grammar_expand(torch.zeros(4, dtype=torch.int32), *t, max_depth=-1)
+
+
+def _hand_tables():
+    """Terminals 0-7; a left-deep chain of rules (depth 7, 8 gaps), a rule
+    over it, and rules of 16, 25, 32, 33, 41, 57 and 64 gaps built from
+    them.  Every table entry is consistent: lens and sums are the
+    children's totals.  Returns the four int32 tables, the rules of 33-64
+    gaps and the grammar's depth."""
+    sums, left, right, lens = [3, 1, 4, 1, 5, 9, 2, 6], [-1] * 8, [-1] * 8, \
+        [1] * 8
+
+    def rule(l, r):
+        left.append(l)
+        right.append(r)
+        sums.append(sums[l] + sums[r])
+        lens.append(lens[l] + lens[r])
+        return len(left) - 1
+
+    x = rule(0, 1)
+    for t in range(2, 8):
+        x = rule(x, t)
+    y = rule(3, x)
+    a = rule(x, x)
+    b = rule(a, y)
+    c = rule(b, a)
+    d = rule(c, a)
+    e = rule(a, a)
+    f = rule(e, 5)
+    g = rule(e, e)
+    tabs = tuple(np.asarray(t, np.int32) for t in (left, right, sums, lens))
+    depth = int(_depths(tabs[0], tabs[1]).max())
+    assert [lens[r] for r in (c, d, f, g)] == [41, 57, 33, 64]
+    return tabs, np.asarray([c, d, f, g], np.int32), depth
+
+
+def test_grammar_expand_long_phrases_cut_at_32():
+    """Phrases of 33-64 gaps: the row holds the first 32, as in the
+    reference; the shorter rules' rows end in zeros."""
+    tabs, long_rules, depth = _hand_tables()
+    left, right, sums, lens = tabs
+    syms = np.concatenate([long_rules, np.arange(lens.size, dtype=np.int32)])
+    got = _expand(syms, tabs, depth)
+    for w, s in enumerate(syms):
+        want = _host_expand(s, left, right, sums)
+        n = min(len(want), PHRASE_CAP)
+        np.testing.assert_array_equal(got[w][:n], want[:n])
+        assert (got[w][n:] == 0).all()
+
+
+def test_grammar_expand_every_depth():
+    """A cut at every depth from 0 to the grammar's: the reference's
+    output at each, for every symbol."""
+    tabs, _, depth = _hand_tables()
+    syms = np.arange(tabs[0].size, dtype=np.int32)
+    rows = [_expand(syms, tabs, d) for d in range(depth + 1)]
+    assert all((a != b).any() for a, b in zip(rows, rows[1:]))
+
+
+def test_grammar_expand_lens_disagree():
+    """lens that disagree with the children's (smaller, larger, zero,
+    negative, INT_MAX and INT_MIN, wants that wrap): the reference's
+    per-slot descent, whatever the tables say."""
+    tabs, long_rules, depth = _hand_tables()
+    left, right, sums, lens = (t.copy() for t in tabs)
+    rng = np.random.default_rng(18)
+    odd = rng.choice(lens.size, size=lens.size // 2, replace=False)
+    lens[odd] = rng.choice(np.array([-7, 0, 1, 2, 5, 31, 33, 40, 2**31 - 1,
+                                     -2**31, -2**31 + 3], np.int64),
+                           size=odd.size).astype(np.int32)
+    syms = np.concatenate([np.arange(lens.size), long_rules]).astype(np.int32)
+    for d in (depth, 3, 0):
+        _expand(syms, (left, right, sums, lens), d)
+
+
+def test_grammar_expand_ids_outside_the_tables():
+    """Ids -1, S and S + 5 beside real ones: a zero row, as the
+    reference's padded slots give (repro's ref clamps such ids, so only
+    its Pallas kernel is held here)."""
+    tabs, _, depth = _hand_tables()
+    S = tabs[0].size
+    syms = np.array([-1, S, 3, S + 5, S - 1, -1], np.int32)
+    got = _expand(syms, tabs, depth, ref=False)
+    assert not got[[0, 1, 3, 5]].any() and got[[2, 4]].any()

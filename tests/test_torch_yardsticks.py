@@ -1,9 +1,10 @@
-"""The bounds ``chip_smoke.py`` holds the K3 and K7 kernels to.
+"""The bounds ``chip_smoke.py`` holds the K3, K5 and K7 kernels to.
 
-``k3_traffic`` and ``k7_traffic`` count the bytes and operations the
-function of one launch needs on its inputs, the same for any kernel.  On
-inputs small enough to count by hand they must give the hand count.  The
-smoke script is imported by its path; nothing here needs a card.
+``k3_traffic``, ``k5_traffic`` and ``k7_traffic`` count the bytes and
+operations the function of one launch needs on its inputs, the same for
+any kernel; ``k5_layout`` reports what a K5 launch's symbols ask of it.
+On inputs small enough to count by hand they must give the hand count.
+The smoke script is imported by its path; nothing here needs a card.
 """
 
 import importlib.util
@@ -75,3 +76,55 @@ def test_k3_traffic_counts_bisection_and_page_words(smoke):
     x = torch.tensor([300], dtype=torch.int32)
     assert EF.ef_next_geq_torch(pack, lid, x).tolist() == [300]
     assert smoke.k3_traffic(lid, x, pack) == (68.0, 111.0)
+
+
+def _k5_tables(left, right, lens):
+    t = lambda a: torch.tensor(a, dtype=torch.int32)
+    return dict(sym_left=t(left), sym_right=t(right), sym_len=t(lens))
+
+
+def test_k5_traffic_hand_count(smoke):
+    """Terminals 0, 1, 2; rule 3 = (0, 1) of 2 gaps, rule 4 = (3, 2) of 3.
+    Symbols [4, 0, 3] expand to trees of 5, 1 and 3 nodes: 9 nodes, 4
+    operations each, plus one per slot of the three (32,) rows.  At
+    max_depth 1 rule 4 stops at 3 (its tree is 4, 3, 2) but rule 3 still
+    reaches its terminals: 7 nodes.  At max_depth 0 each symbol is its
+    own node.  Bytes: 4 a symbol, 128 a row, 16 per distinct node read
+    (all five; at max_depth 0 the three symbols); an id outside the
+    tables reads nothing and is one node."""
+    tabs = _k5_tables([-1, -1, -1, 0, 3], [-1, -1, -1, 1, 2],
+                      [1, 1, 1, 2, 3])
+    syms = torch.tensor([4, 0, 3], dtype=torch.int32)
+    assert smoke.k5_traffic(syms, tabs, 13) == (476.0, 96 + 4 * 9.0)
+    assert smoke.k5_traffic(syms, tabs, 1) == (476.0, 96 + 4 * 7.0)
+    assert smoke.k5_traffic(syms, tabs, 0) == (444.0, 96 + 4 * 3.0)
+    pad = torch.tensor([-1, 5], dtype=torch.int32)
+    assert smoke.k5_traffic(pad, tabs, 13) == (264.0, 64 + 4 * 2.0)
+
+
+def test_k5_traffic_counts_the_first_32_slots_only(smoke):
+    """A phrase of 48 gaps (rule 8 = (7, 7), 7 = (6, 6), 6 = (5, 5), 5 =
+    (4, 4) over the grammar above): only the nodes that hold one of its
+    first 32 slots count, each once, however many slots pass through it,
+    and never the slots past the phrase's length — not one design's loop
+    trips.  Rule 7 on the left holds 24 slots (its whole tree, 47
+    nodes); the right 7 holds 8: itself, its left 6 (8 slots), that 6's
+    left 5 whole (11 nodes) and its right 5 with 2 slots (5, its 4, the
+    4's 3 and the 3's two terminals: 5 nodes)."""
+    tabs = _k5_tables([-1, -1, -1, 0, 3, 4, 5, 6, 7],
+                      [-1, -1, -1, 1, 2, 4, 5, 6, 7],
+                      [1, 1, 1, 2, 3, 6, 12, 24, 48])
+    syms = torch.tensor([8], dtype=torch.int32)
+    nodes = 1 + 47 + (1 + 1 + 11 + 5)
+    assert smoke.k5_traffic(syms, tabs, 13) == (4 + 128 + 16 * 9.0,
+                                                32 + 4.0 * nodes)
+
+
+def test_k5_layout_hand_count(smoke):
+    """Symbols [4, 0, 3, 4] of the grammar above: 3 + 1 + 2 + 3 gaps of
+    128 slots; depths 2, 0, 1, 2."""
+    tabs = _k5_tables([-1, -1, -1, 0, 3], [-1, -1, -1, 1, 2],
+                      [1, 1, 1, 2, 3])
+    syms = torch.tensor([4, 0, 3, 4], dtype=torch.int32)
+    assert smoke.k5_layout(syms, tabs) == dict(
+        symbols=4, gap_slots=9 / 128, depth_mean=1.25, depth_max=2)
