@@ -112,6 +112,26 @@ exits non-zero:
    flush 8 times and compact at least twice.  Inserts per second, the
    flushes and compactions and their ms, the segments and each round's
    q/s and p50 / p95 are printed.
+11. mesh — list-sharded serving of the phase-3 index, ``QueryServer(
+   engine="cuda", mesh=Mesh(...))``: the grammar replicated, the stream
+   list-partitioned, each shard's lanes run by K1 (a shard that owns
+   every list on the engine's card through the engine's own pack), a max
+   across the shards.  11a:
+   ``Mesh([cuda:0])`` under ``repair`` and ``adaptive`` over phase 5's
+   256 boolean and 64 top-10 queries, then 256 conjunctions through
+   ``and_batch``; 11b: the boolean queries (as planned, then svs forced)
+   and the conjunctions on ``Mesh([cuda:0, cuda:0])``, each shard's
+   lists, stream length and table bytes printed; 11c: phase 10's stream
+   under ``Mesh([cuda:0])``, cut to its first 2 rounds of 256 documents.
+   Launch and dispatch counts are zeroed just before each pass and read
+   just after: the merged rounds must take the sharded dispatch and
+   launch K1 at least once per shard per dispatch, K2 serve the ranked
+   decodes, K3 the EF lanes under ``adaptive``, K1 the conjunctions'
+   ``_probe_dev`` (replicated, as in ``repro``), K4 the flushes; every
+   segment engine must be sharded.  Every answer equals phase 5's
+   unsharded answers and the oracles, and the largest sharded round's
+   lanes, run again through the sharded route, equal the plain flat
+   program over the whole index on the same lanes.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
@@ -164,6 +184,9 @@ AUX_KERNELS = ("grammar_expand", "gap_decode", "bucket_intersect",
 INGEST_DOCS, INGEST_ROUNDS = 2048, 8
 INGEST_BOOLEAN, INGEST_RANKED = 64, 16
 INGEST_BUDGET, INGEST_FANOUT = 256, 4
+#: phase 11: conjunctions sent through ``and_batch`` per mesh server, and
+#: the rounds of phase 10's stream run again under the 1-shard mesh
+MESH_PAIRS, MESH_INGEST_ROUNDS = 256, 2
 
 
 def _nvidia_smi() -> str:
@@ -1500,7 +1523,8 @@ def _outofcore(res, lists, queries, bags, run5, num_pages, tables1, host1,
     return dict(run=run, rows=rows, stats=rs)
 
 
-def _ingest(res, lists, term_ids, vocab: int, seed: int) -> dict:
+def _ingest(res, lists, term_ids, vocab: int, seed: int,
+            n_rounds: int = INGEST_ROUNDS, mesh=None) -> dict:
     """Phase 10: streaming ingestion over the phase-3 index on the card.
     A ``QueryServer(engine="cuda")`` over the served index takes
     ``INGEST_DOCS`` new documents of the same law (``zipf_corpus`` at mean
@@ -1514,11 +1538,17 @@ def _ingest(res, lists, term_ids, vocab: int, seed: int) -> dict:
     every answer checked against ``naive_eval`` / ``rank_oracle`` over
     the base plus the inserted documents.  Counts are zeroed just before
     the phase and read just after: K1, K2 and K4 must launch.  Returns
-    the phase's numbers."""
+    the phase's numbers.
+
+    Phase 11c runs the first ``n_rounds`` rounds under ``mesh``: every
+    segment engine is then list-sharded, the merged rounds take the
+    sharded dispatch (K1 on each shard), and at least one sharded
+    dispatch must be counted."""
     import numpy as np
     import torch
     from repro_torch import kernels as KR
     from repro_torch.build import make_builder
+    from repro_torch.engine import device as D
     from repro_torch.index.corpus import zipf_corpus
     from repro_torch.launch.serve import boolean_workload, ranked_workload
     from repro_torch.query import naive_eval, rank_oracle
@@ -1532,7 +1562,7 @@ def _ingest(res, lists, term_ids, vocab: int, seed: int) -> dict:
         ids = word_to_list[words]
         new_docs.append(np.sort(ids[ids >= 0]))
     srv = QueryServer(res, engine="cuda", device="cuda",
-                      batch_window=CONCURRENCY, codec="repair")
+                      batch_window=CONCURRENCY, codec="repair", mesh=mesh)
     seg = srv.enable_ingest(
         delta_budget=INGEST_BUDGET, compact_fanout=INGEST_FANOUT,
         builder=make_builder("cuda", device="cuda",
@@ -1552,13 +1582,14 @@ def _ingest(res, lists, term_ids, vocab: int, seed: int) -> dict:
     per_round = INGEST_DOCS // INGEST_ROUNDS
     rounds, t_insert = [], 0.0
     KR.reset_launches()
-    for r in range(INGEST_ROUNDS):
+    D.reset_dispatches()
+    for r in range(n_rounds):
         t0 = time.perf_counter()
         for d in new_docs[r * per_round:(r + 1) * per_round]:
             gid = srv.insert(d)
             for t in d.tolist():
                 extra.setdefault(t, []).append(gid)
-        if r == INGEST_ROUNDS - 1:
+        if r == n_rounds - 1:
             srv.flush()                   # the stream's end: freeze the tail
         torch.cuda.synchronize()
         t_insert += time.perf_counter() - t0
@@ -1600,23 +1631,254 @@ def _ingest(res, lists, term_ids, vocab: int, seed: int) -> dict:
             rank_p95=float(np.percentile(lat_r, 95)) * 1e3))
     torch.cuda.synchronize()
     launches = dict(KR.LAUNCHES)
+    dispatches = D.DISPATCHES["sharded_next_geq"]
     tel = seg.telemetry()
+    new_docs = new_docs[:n_rounds * per_round]
     postings = sum(d.size for d in new_docs)
     for name in ("list_intersect", "page_score", "pair_count"):
         if launches[name] == 0:
             raise SystemExit(f"[ingest] {name} never launched in the "
                              f"phase: {launches}")
-    if tel["flushes"] < INGEST_ROUNDS or tel["compactions"] < 2:
+    if mesh is not None and dispatches == 0:
+        raise SystemExit("[ingest] no sharded dispatch under the mesh")
+    if tel["flushes"] < n_rounds or (n_rounds == INGEST_ROUNDS
+                                     and tel["compactions"] < 2):
         raise SystemExit(f"[ingest] {tel['flushes']} flushes and "
                          f"{tel['compactions']} compactions: the stream did "
                          f"not flush and compact as expected")
     for s in seg.segments:
         if s.engine is not None and s.engine.device != srv.engine.device:
             raise SystemExit("[ingest] a segment engine is off the card")
+        if s.engine is not None and mesh is not None \
+                and s.engine._sharded_next_geq is None:
+            raise SystemExit("[ingest] a segment engine is not sharded")
     return dict(docs=len(new_docs), postings=postings, t_insert=t_insert,
+                dispatches=dispatches,
                 compact_ms=compact_ms[0], telemetry=tel, rounds=rounds,
                 launches=launches,
                 layout=[(s.base, s.num_docs, s.gen) for s in seg.segments])
+
+
+def _mesh_serve(srv, queries, bags, lists, universe, wrappers, pairs,
+                run5) -> dict:
+    """One list-sharded server's pass: the boolean and ranked workloads
+    through ``_serve`` (given no ``bags``, the boolean workload as the
+    planner runs it and again with svs forced), then ``pairs`` through
+    ``and_batch`` (the engine API whose ``_probe_dev`` keeps K1), each
+    with the launch and dispatch counts zeroed just before and read just
+    after.  Every answer must equal the oracles and ``run5``'s unsharded
+    answers."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as KR
+    from repro_torch.engine import device as D
+    from repro_torch.query import naive_eval
+    call, seen = srv.engine._sharded_next_geq, {}
+
+    def recording(g, x):
+        if np.size(g) > np.size(seen.get("g", ())):
+            seen.update(g=np.array(g), x=np.array(x))
+        return call(g, x)
+    srv.engine._sharded_next_geq = recording
+    D.reset_dispatches()
+    if bags:
+        run = _serve(srv, queries, bags, lists, universe, wrappers)
+        ranked = run["ranked"]
+    else:
+        # the planner's choice, then every conjunction forced to svs (at
+        # this scale the planner may pick merge and bys, which are not
+        # sharded, for every step)
+        KR.reset_launches()
+        t0 = time.perf_counter()
+        outs = srv.search_many(queries)
+        torch.cuda.synchronize()
+        t_bool = time.perf_counter() - t0
+        svs = srv.search_many(queries, "svs")
+        torch.cuda.synchronize()
+        run = dict(t_bool=t_bool, outs=outs, launches=dict(KR.LAUNCHES),
+                   t_rank=None, stats=srv.serve_stats())
+        ranked = []
+        for q, got, forced in zip(queries, outs, svs):
+            want = naive_eval(q, lists, universe)
+            if not (np.array_equal(got, want)
+                    and np.array_equal(forced, want)):
+                raise SystemExit(f"[mesh] boolean answer differs: {q}")
+    run["dispatches"] = D.DISPATCHES["sharded_next_geq"]
+    for got, want in zip(run["outs"], run5["outs"]):
+        if not np.array_equal(got, want):
+            raise SystemExit("[mesh] a boolean answer differs from phase "
+                             "5's unsharded one")
+    for got, want in zip(ranked, run5["ranked"]):
+        if not (np.array_equal(got.docs, want.docs)
+                and np.array_equal(got.scores, want.scores)):
+            raise SystemExit("[mesh] a ranked answer differs from phase "
+                             "5's unsharded one")
+    KR.reset_launches()
+    D.reset_dispatches()
+    t0 = time.perf_counter()
+    outs = srv.and_batch(pairs)
+    torch.cuda.synchronize()
+    run["t_pairs"] = time.perf_counter() - t0
+    run["pair_launches"] = dict(KR.LAUNCHES)
+    run["pair_dispatches"] = D.DISPATCHES["sharded_next_geq"]
+    for (a, b), got in zip(pairs, outs):
+        if not np.array_equal(got, np.intersect1d(lists[a], lists[b])):
+            raise SystemExit(f"[mesh] and_batch answer differs: {(a, b)}")
+    srv.engine._sharded_next_geq = call
+    if "g" not in seen:
+        raise SystemExit("[mesh] no sharded round in the pass")
+    run["hold"] = _hold_sharded(srv.engine, call, seen["g"], seen["x"])
+    return run
+
+
+def _hold_sharded(eng, call, g, x) -> dict:
+    """The largest sharded round's lanes through the sharded route again
+    and through the plain flat program over the whole index on the card
+    (``torch_backend.next_geq_batch``): the answers must be equal.  Wall
+    ms per call of each (host routing included), median of 5 after a
+    warm-up; these launches come after the counts were read."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import torch_backend as J
+    lt = torch.from_numpy(np.ascontiguousarray(g, np.int32)).to(eng.device)
+    xt = torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(eng.device)
+
+    def flat():
+        return J.next_geq_batch(eng.fi, lt, xt).cpu().numpy()
+
+    def wall(fn):
+        fn()
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+    got, want = call(g, x), flat()
+    err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
+    if err:
+        raise SystemExit(f"[mesh] the sharded route differs from the flat "
+                         f"program on the largest round: {err}")
+    return dict(lanes=int(np.size(g)), err=err, ms=wall(lambda: call(g, x)),
+                plain_ms=wall(flat))
+
+
+def _print_sharded_hold(what: str, hold: dict) -> None:
+    print(f"[mesh] {what}: the largest sharded round ({hold['lanes']} "
+          f"lanes) through the sharded route {hold['ms']:.3f} ms, through "
+          f"the plain flat program over the whole index "
+          f"{hold['plain_ms']:.3f} ms (wall, host routing included); "
+          f"max_abs_err {hold['err']}")
+
+
+def _mesh(res, lists, queries, bags, runs, tiers, wrappers, seed) -> dict:
+    """Phase 11: list-sharded serving, ``QueryServer(engine="cuda",
+    mesh=...)``.  11a: a ``Mesh([cuda:0])`` server per codec (``repair``,
+    ``adaptive``) over phase 5's 256 boolean and 64 top-10 queries, plus
+    ``MESH_PAIRS`` conjunctions through ``and_batch``; the merged rounds
+    must take the sharded dispatch, K2 serve the ranked decodes, K1 the
+    pairs' ``_probe_dev`` (``repair``) and K3 the EF lanes
+    (``adaptive``); K1 launches at least once per sharded dispatch.  11b: the boolean queries and the pairs again on
+    ``Mesh([cuda:0, cuda:0])``, each shard's lists, stream length and the
+    bytes of its tables on the card printed.  Every answer equals phase
+    5's and the oracles.  Between them, a fresh ``repair`` pass over a
+    quarter of the workloads runs unsharded and on ``Mesh([cuda:0])``
+    under ``torch.profiler``: the device's busy time and its largest
+    entries, side by side."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    from repro_torch.serve import QueryServer
+    card = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 11)
+    pairs = [tuple(map(int, rng.choice(len(lists), 2, replace=False)))
+             for _ in range(MESH_PAIRS)]
+    out = {}
+    for codec in ("repair", "adaptive"):
+        srv = QueryServer(res, engine="cuda", device="cuda",
+                          batch_window=CONCURRENCY,
+                          codec=tiers.get(codec, codec),
+                          mesh=Mesh([card]))
+        run = _mesh_serve(srv, queries, bags, lists, res.universe,
+                          wrappers, pairs, runs[codec][1])
+        la, lp = run["launches"], run["pair_launches"]
+        need = {"repair": ("page_score",), "adaptive": ("ef_next_geq",)}
+        if run["dispatches"] == 0 or any(la[k] == 0 for k in need[codec]) \
+                or la["list_intersect"] < run["dispatches"] \
+                or (codec == "repair" and lp["list_intersect"] == 0):
+            raise SystemExit(f"[mesh] {codec}: {run['dispatches']} sharded "
+                             f"dispatches, launches {la}, pairs' launches "
+                             f"{lp}")
+        print(f"[mesh] 11a Mesh([cuda:0]) codec {codec}: boolean "
+              f"{len(queries) / run['t_bool']:.1f} q/s, ranked "
+              f"{len(bags) / run['t_rank']:.1f} q/s (phase 5 unsharded: "
+              f"{len(queries) / runs[codec][1]['t_bool']:.1f} / "
+              f"{len(bags) / runs[codec][1]['t_rank']:.1f}); sharded "
+              f"dispatches {run['dispatches']}; launches K1 "
+              f"{la['list_intersect']}, K2 {la['page_score']}, K3 "
+              f"{la['ef_next_geq']}; {len(pairs)} pairs through and_batch "
+              f"in {run['t_pairs']:.3f} s: launches K1 "
+              f"{lp['list_intersect']}, K3 {lp['ef_next_geq']}, sharded "
+              f"dispatches {run['pair_dispatches']}; every answer equal "
+              f"phase 5's and naive_eval / rank_oracle / np.intersect1d")
+        _print_sharded_hold(f"11a {codec}", run["hold"])
+        out[codec] = run
+
+    # where the sharded route's device time goes: fresh 'repair' servers
+    # (no memo, no result cache), unsharded and on Mesh([cuda:0]), built
+    # before the profiler starts, over the same quarter of the workloads
+    # under torch.profiler
+    def serving(mesh):
+        s = QueryServer(res, engine="cuda", device="cuda",
+                        batch_window=CONCURRENCY, codec="repair", mesh=mesh)
+
+        def run():
+            s.search_many(queries[:len(queries) // 4])
+            s.search_topk_many(bags[:len(bags) // 4], TOPK)
+        return run
+
+    for what, mesh in (("unsharded", None),
+                       ("Mesh([cuda:0])", Mesh([card]))):
+        fn = serving(mesh)
+        D.reset_dispatches()
+        prof = _profile(fn)
+        _print_profile("mesh", f"a fresh {what} 'repair' pass "
+                       f"({len(queries) // 4} boolean + {len(bags) // 4} "
+                       f"ranked queries, "
+                       f"{D.DISPATCHES['sharded_next_geq']} sharded "
+                       f"dispatches)", prof)
+    srv = QueryServer(res, engine="cuda", device="cuda",
+                      batch_window=CONCURRENCY, codec="repair",
+                      mesh=Mesh([card, card]))
+    call = srv.engine._sharded_next_geq
+    sof = [sh["lists"] for sh in call.shards]
+    nbytes = sum(t.numel() * t.element_size()
+                 for sh in call.shards for t in sh["tables"].values())
+    stream = [sh["stream"] for sh in call.shards]
+    run = _mesh_serve(srv, queries, [], lists, res.universe, wrappers,
+                      pairs, runs["repair"][1])
+    if run["dispatches"] == 0 or run["pair_launches"]["list_intersect"] == 0 \
+            or run["launches"]["list_intersect"] < 2 * run["dispatches"]:
+        raise SystemExit(f"[mesh] 11b: {run['dispatches']} sharded "
+                         f"dispatches, pairs' launches "
+                         f"{run['pair_launches']}")
+    print(f"[mesh] 11b Mesh([cuda:0, cuda:0]): shards own {sof} "
+          f"lists, streams of {stream} symbols; the shards' tables hold "
+          f"{nbytes / 2**20:.2f} MiB on the card (their paged stream "
+          f"packs) beside the engine's own index (the second copy of the "
+          f"stream); boolean "
+          f"{len(queries) / run['t_bool']:.1f} q/s, sharded dispatches "
+          f"{run['dispatches']}, launches K1 "
+          f"{run['launches']['list_intersect']} (svs forced in a second "
+          f"pass); pairs: K1 "
+          f"{run['pair_launches']['list_intersect']} launches; every "
+          f"answer equal phase 5's and naive_eval / np.intersect1d")
+    _print_sharded_hold("11b", run["hold"])
+    out["two"] = dict(run, lists=sof, stream=stream, bytes=nbytes)
+    return out
 
 
 def main() -> int:
@@ -2062,6 +2324,29 @@ def main() -> int:
               f"{row['bool_qps']:.1f} q/s, p50 {row['bool_p50']:.2f} / p95 "
               f"{row['bool_p95']:.2f} ms; ranked {row['rank_qps']:.1f} q/s, "
               f"p50 {row['rank_p50']:.2f} / p95 {row['rank_p95']:.2f} ms")
+
+    # 11. mesh: list-sharded serving of the phase-3 index on the card
+    t0 = time.perf_counter()
+    _mesh(res, lists, queries, bags, runs, tiers, wrappers, args.seed)
+    from repro_torch.distributed import Mesh
+    ing = _ingest(res, lists, term_ids, args.vocab, args.seed,
+                  n_rounds=MESH_INGEST_ROUNDS,
+                  mesh=Mesh([torch.device("cuda", 0)]))
+    tel = ing["telemetry"]
+    print(f"[mesh] 11c phase 10's stream under Mesh([cuda:0]), cut to "
+          f"{MESH_INGEST_ROUNDS} rounds: {ing['docs']} documents "
+          f"({ing['postings']} postings) at "
+          f"{ing['docs'] / ing['t_insert']:.1f} inserts/s; "
+          f"{tel['flushes']} flushes, {tel['compactions']} compactions, "
+          f"{tel['segments']} segments, every segment engine sharded; "
+          f"sharded dispatches {ing['dispatches']}, launches "
+          f"{ing['launches']}; every answer of every round equal "
+          f"naive_eval / rank_oracle")
+    for r, row in enumerate(ing["rounds"]):
+        print(f"[mesh]   11c round {r}: boolean {row['bool_qps']:.1f} q/s, "
+              f"p50 {row['bool_p50']:.2f} / p95 {row['bool_p95']:.2f} ms; "
+              f"ranked {row['rank_qps']:.1f} q/s")
+    print(f"[mesh] phase 11 in {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

@@ -9,8 +9,9 @@ feed), ``index`` (corpus, codec tier, index builder), ``engine`` (host /
 torch / cuda backends), ``kernels`` (hand-written CUDA kernels
 ``list_intersect``, ``page_score``, ``ef_next_geq`` and ``pair_count``
 with their plain versions), ``query`` (planner and step machines),
-``serve`` (coalescing scheduler and ``QueryServer``) and ``launch`` (the
-serving launcher).
+``serve`` (coalescing scheduler and ``QueryServer``), ``distributed``
+(the mesh of list-sharded serving) and
+``launch`` (the serving launcher).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; without a card the CUDA default raises.

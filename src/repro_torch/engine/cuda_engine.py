@@ -14,6 +14,11 @@ plain PyTorch programs, as ``PallasEngine`` reuses jnp for them.  The
 paged index and the kernels' operand packs are built once per index and
 reused for every launch.
 
+Under a mesh (``mesh=``) the repair lanes run list-sharded, each shard
+through K1 over its own paged operand pack (a shard that owns every list
+on the engine's card through the engine's own); ``_probe_dev`` stays
+replicated, as in ``PallasEngine``.
+
 Out of core (``store=``), the engine follows ``PallasEngine``: it packs
 only the five RAM-tier tables of K1, attaches the store, and every
 Re-Pair probe runs K1's resident route — the stream read from the
@@ -58,6 +63,7 @@ class CudaEngine(DeviceEngine):
         store = self._wants_store()
         self._tables, self._statics, self._host = K.pad_paged_operands(
             self.pi, include_stream=not store)
+        self._bind_mesh(int(self.pi.page_size))
         if store:
             # one routing snapshot routes K1's lanes and faults their pages
             self.pi = self._attach_store(self.pi, route_host=self._host)

@@ -23,12 +23,25 @@ expansions, page decodes — goes through the bounded resident pool of a
 :class:`~repro_torch.store.ResidentSet`, whose working set is faulted in
 before each dispatch.  The port's device engines have no host fallback
 (every pair runs on the device), so the pool has no second user.
+
+**Sharded dispatch**: construct a device engine with a ``mesh``
+(:class:`repro_torch.distributed.Mesh`, the devices of its ``data``
+axis) and the Re-Pair probe rounds of ``next_geq_batch`` run
+list-sharded — the grammar tables are replicated to every shard's
+device, the compressed stream, spans and (b)-sampling are
+list-partitioned into contiguous shards balanced by stream length
+(``shard_flat_index``), each shard answers the lanes whose list it owns
+with its engine's own probe (the torch engine's flat program, the cuda
+engine's K1), and a max over the shards assembles the batch (every list
+has exactly one owner; non-owners emit -1).  One process drives every
+shard, as ``repro``'s ``shard_map`` is one program over every device.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -38,6 +51,7 @@ from ..core.index import (FlatIndex, PagedIndex, as_store_backed,
                           build_flat_index, build_paged_index, DEFAULT_PAGE)
 from ..core import ef as EF
 from ..core.repair import RePairResult
+from ..distributed.sharding import INDEX_REPLICATED_FIELDS, Mesh
 from ..index import codec_tier as CT
 from ..kernels import resolve_device
 from ..kernels.list_intersect import ops as K
@@ -46,17 +60,220 @@ from .base import Engine
 from . import torch_backend as J
 
 
+def _np(a) -> np.ndarray:
+    """Host copy of a FlatIndex field (tensor on any device, or array)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def shard_flat_index(fi: FlatIndex, num_shards: int
+                     ) -> tuple[dict, np.ndarray, np.ndarray]:
+    """List-partition a flat index into ``num_shards`` contiguous shards
+    balanced by compressed-stream length.
+
+    Returns ``(stacked, shard_of_list, local_lid)``: ``stacked`` maps field
+    name -> (num_shards, ...) int32 array (per-shard spans rebased to the
+    shard's local stream, everything padded to the widest shard so the
+    stack is rectangular), and the two (L,) routing tables give each
+    global list its owning shard and its index within it.  Grammar tables
+    are NOT here — they replicate.  A shard may own no list (more shards
+    than lists); its rows are the padding."""
+    starts = _np(fi.starts).astype(np.int64)
+    L = starts.size - 1
+    N = int(starts[-1])
+    c = _np(fi.c).astype(np.int64)
+    boffs = _np(fi.bucket_offsets).astype(np.int64)
+    bpos = _np(fi.bck_c_pos).astype(np.int64)
+    babs = _np(fi.bck_abs).astype(np.int64)
+    per_list = {k: _np(getattr(fi, k)).astype(np.int64)
+                for k in ("firsts", "lasts", "lengths", "kbits")}
+
+    # contiguous list boundaries closest to equal stream slices
+    targets = (np.arange(num_shards + 1) * N) // max(num_shards, 1)
+    lb = np.searchsorted(starts, targets, side="left")
+    lb[0], lb[-1] = 0, L
+    lb = np.maximum.accumulate(lb)
+
+    shard_of_list = np.repeat(np.arange(num_shards), np.diff(lb))
+    local_lid = np.arange(L) - lb[shard_of_list]
+
+    l_max = max(1, int(np.diff(lb).max(initial=0)))
+    n_max = max(1, int((starts[lb[1:]] - starts[lb[:-1]]).max(initial=0)))
+    nb_max = max(1, int((boffs[lb[1:]] - boffs[lb[:-1]]).max(initial=0)))
+
+    def blank(fill, *shape):
+        return np.full((num_shards, *shape), fill, dtype=np.int64)
+
+    out = {"c": blank(0, n_max), "starts": blank(0, l_max + 1),
+           "bucket_offsets": blank(0, l_max + 1),
+           "bck_c_pos": blank(0, nb_max), "bck_abs": blank(0, nb_max),
+           "firsts": blank(0, l_max), "lasts": blank(-1, l_max),
+           "lengths": blank(0, l_max), "kbits": blank(1, l_max)}
+    for d in range(num_shards):
+        a, b = lb[d], lb[d + 1]
+        c0, c1 = starts[a], starts[b]
+        out["c"][d, : c1 - c0] = c[c0:c1]
+        loc = starts[a : b + 1] - c0
+        out["starts"][d, : b - a + 1] = loc
+        out["starts"][d, b - a + 1 :] = loc[-1]
+        o0, o1 = boffs[a], boffs[b]
+        ob = boffs[a : b + 1] - o0
+        out["bucket_offsets"][d, : b - a + 1] = ob
+        out["bucket_offsets"][d, b - a + 1 :] = ob[-1]
+        out["bck_c_pos"][d, : o1 - o0] = bpos[o0:o1]
+        out["bck_abs"][d, : o1 - o0] = babs[o0:o1]
+        for k, v in per_list.items():
+            out[k][d, : b - a] = v[a:b]
+    stacked = {k: v.astype(np.int32) for k, v in out.items()}
+    return stacked, shard_of_list.astype(np.int32), local_lid.astype(np.int32)
+
+
+_STACKED_FIELDS = ("c", "starts", "bucket_offsets", "bck_c_pos", "bck_abs",
+                   "firsts", "lasts", "lengths", "kbits")
+
+#: sharded ``next_geq`` dispatches since the last :func:`reset_dispatches`
+#: (one per probe round, however many shards answer it)
+DISPATCHES = {"sharded_next_geq": 0}
+
+
+def reset_dispatches() -> None:
+    for k in DISPATCHES:
+        DISPATCHES[k] = 0
+
+
+def _placement(dev: torch.device) -> torch.device:
+    """A mesh entry as ``resolve_device`` names it, without asking for a
+    card: a bare ``cuda`` is the current card (card 0 where none is)."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device()
+                            if torch.cuda.is_available() else 0)
+    return dev
+
+
+def _check_placement(mesh: Mesh, home: torch.device) -> None:
+    """An engine serves a mesh only from one of the mesh's devices:
+    nothing is moved silently."""
+    if home not in [_placement(d) for d in mesh.devices]:
+        raise ValueError(f"engine on {home} is not a device of the mesh "
+                         f"{[str(d) for d in mesh.devices]}")
+
+
+def _shard_fields(stacked: dict, d: int) -> dict[str, np.ndarray]:
+    """Row ``d`` of ``shard_flat_index``'s stacks, its bucket tables cut
+    to the shard's own buckets (at least one entry): the paged layout
+    addresses every bucket by its owning list."""
+    nb = max(1, int(stacked["bucket_offsets"][d, -1]))
+    return {k: np.ascontiguousarray(
+                v[d, :nb] if k in ("bck_c_pos", "bck_abs") else v[d])
+            for k, v in stacked.items()}
+
+
+def make_sharded_next_geq(fi: FlatIndex, mesh: Mesh,
+                          page_size: int | None = None, whole=None):
+    """Bind one flat index to the list-sharded ``next_geq`` over the
+    mesh's ``data`` axis; returns ``call(gids, xs)`` -> (Q,) int32 numpy.
+
+    Shard ``d`` lives on ``mesh.devices[d]``: row ``d`` of
+    ``shard_flat_index``'s stacks, the replicated grammar tables (one
+    copy per distinct device; ``fi``'s own on its device) and the GLOBAL
+    index's static bounds.  A call probes every shard over all lanes — a
+    lane whose list the shard does not own probes local list 0 at x = 0,
+    and its answer becomes -1 — and takes the max over the shards in
+    int32.  A past-end answer is INT_INF, never -1, so the owner's answer
+    always wins.  This is ``repro``'s ``local_next_geq`` plus ``pmax``.
+
+    A shard probes as its engine does: ``page_size=None`` runs the plain
+    flat program ``torch_backend.next_geq_batch`` (the torch engine); a
+    page size runs kernel K1 (``next_geq_paged``) over the shard's own
+    paged operand pack (the cuda engine), so every Re-Pair probe the cuda
+    engine serves on a card goes through K1 (``repro`` runs its jnp flat
+    program here for its pallas engine too).  ``whole`` — the engine's
+    own probe, numpy in and out — serves a shard that owns every list and
+    sits on ``fi``'s device: a one-shard mesh there holds no second copy
+    of the index.
+
+    The stacks are cut from ``fi`` as it is, so an engine that goes out of
+    core binds before it drops the stream, and its shards then hold the
+    whole stream on their devices beside the bounded pool: sharding is
+    its own residency."""
+    home = fi.device
+    _check_placement(mesh, home)
+    devices = [resolve_device(d) for d in mesh.devices]  # no card: raise
+    stacked, shard_of_list, local_lid = shard_flat_index(fi, mesh.size)
+    statics = {k: getattr(fi, k) for k in
+               ("num_terminals", "max_depth", "max_scan", "universe")}
+    grammar = {dev: {k: getattr(fi, k).to(dev)
+                     for k in INDEX_REPLICATED_FIELDS}
+               for dev in dict.fromkeys(devices + [torch.device("cpu")]
+                                        * (page_size is not None))}
+    probes, shards = [], []
+    for d, dev in enumerate(devices):
+        info = dict(device=dev, lists=int((shard_of_list == d).sum()),
+                    stream=int(stacked["starts"][d, -1]), tables={})
+        shards.append(info)
+        if whole is not None and dev == home \
+                and info["lists"] == shard_of_list.size:
+            probes.append(whole)
+            continue
+        fields = {k: torch.from_numpy(v)
+                  for k, v in _shard_fields(stacked, d).items()}
+        if page_size is None:
+            info["tables"] = {k: v.to(dev) for k, v in fields.items()}
+            probes.append(_flat_probe(FlatIndex(
+                **grammar[dev], **info["tables"], **statics)))
+        else:
+            tables, st, host = K.pad_paged_operands(build_paged_index(
+                FlatIndex(**grammar[torch.device("cpu")], **fields,
+                          **statics), page_size))
+            info["tables"] = {k: v.to(dev) for k, v in tables.items()
+                              if k not in INDEX_REPLICATED_FIELDS}
+            probes.append(functools.partial(
+                K.next_geq_paged, dict(grammar[dev], **info["tables"]),
+                host, **st))
+
+    def call(gids, xs) -> np.ndarray:
+        DISPATCHES["sharded_next_geq"] += 1
+        g = np.asarray(gids, np.int64)
+        x = np.asarray(xs, np.int32)
+        sof = shard_of_list[g]
+        out = np.full(g.shape, -1, np.int32)
+        for d, probe in enumerate(probes):
+            mine = sof == d
+            vals = probe(np.where(mine, local_lid[g], 0).astype(np.int32),
+                         np.where(mine, x, 0).astype(np.int32))
+            out = np.maximum(out, np.where(mine, vals, -1).astype(np.int32))
+        return out
+
+    call.shards = shards
+    call.shard_of_list = shard_of_list
+    return call
+
+
+def _flat_probe(shard: FlatIndex):
+    """numpy lanes -> numpy answers of the flat program on ``shard``'s
+    device."""
+    def probe(lids: np.ndarray, xs: np.ndarray) -> np.ndarray:
+        dev = shard.c.device
+        return J.next_geq_batch(shard, torch.from_numpy(lids).to(dev),
+                                torch.from_numpy(xs).to(dev)).cpu().numpy()
+    return probe
+
+
 class DeviceEngine(Engine):
     """Backend-independent device-engine scaffolding.
 
     ``max_short_len`` is the width of one row of expanded short-side
     probes: a short side that fits is one row, a longer one is expanded
     whole and cut into rows of that width, all probed in the same launch.
+    ``mesh`` switches the Re-Pair lanes of ``next_geq_batch`` to the
+    list-sharded dispatch; the engine's ``device`` must be one of the
+    mesh's devices.  The backend binds it (``_bind_mesh``) once its own
+    probe operands exist.
     """
 
     def __init__(self, res: RePairResult, fi: FlatIndex | None = None,
                  max_short_len: int = 256, B: int = 8, device="cuda",
-                 codec=None, store=None, resident_pages=None):
+                 codec=None, store=None, resident_pages=None,
+                 mesh: Mesh | None = None):
         device = resolve_device(device)   # no card: raise before any build
         super().__init__(res, codec=codec, store=store,
                          resident_pages=resident_pages)
@@ -69,6 +286,23 @@ class DeviceEngine(Engine):
         self.max_short_len = max_short_len
         self._bys_incl = None   # [BY04] prefix table, built on first bys
         self._route_host = None  # routing snapshot, set by _attach_store
+        self._mesh = mesh
+        self._sharded_next_geq = None
+        if mesh is not None:
+            _check_placement(mesh, self.device)   # before any build
+
+    def _bind_mesh(self, page_size: int | None) -> None:
+        """Bind the sharded route over the engine's mesh (none: nothing to
+        do), probing each shard with the flat program (``page_size``
+        None) or K1 at ``page_size``.  Called by the backend once its own
+        probe operands exist and before ``_attach_store`` slims
+        ``self.fi``, so the shards are cut from the full stream.  Out of
+        core the engine's own probe reads the pool, so no shard shares
+        it."""
+        if self._mesh is not None:
+            self._sharded_next_geq = make_sharded_next_geq(
+                self.fi, self._mesh, page_size=page_size,
+                whole=None if self._wants_store() else self._next_geq_dev)
 
     # -- out-of-core store attach (DESIGN.md §11) ---------------------------
 
@@ -114,7 +348,10 @@ class DeviceEngine(Engine):
     def _probe_pages(self, lids: np.ndarray, xq: np.ndarray) -> np.ndarray:
         """Working set of a probe round = exactly the pages the router
         windows (``probe_working_set``), so a prefault batch faults
-        nothing a dispatch would not."""
+        nothing a dispatch would not.  Sharded probes read their shards'
+        own streams, not the pool: their working set is empty."""
+        if self._sharded_next_geq is not None:
+            return np.zeros(0, np.int64)   # sharding is its own residency
         return K.probe_working_set(self._route_host, lids, xq)
 
     def _tensor(self, a) -> torch.Tensor:
@@ -168,6 +405,8 @@ class DeviceEngine(Engine):
                          xs: np.ndarray) -> np.ndarray:
         lids = np.asarray(list_ids, np.int32)
         xq = np.asarray(xs, np.int32)
+        if self._sharded_next_geq is not None:
+            return self._sharded_next_geq(lids, xq)
         if self.resident is not None:
             return np.asarray(self._next_geq_resident(lids, xq))
         return np.asarray(self._next_geq_dev(lids, xq))
@@ -229,7 +468,9 @@ class DeviceEngine(Engine):
         tier the backend's ``_probe_dev`` runs; with one the lanes flatten
         through ``next_geq_batch`` so EF and bitmap lists probe their own
         stores (the values are identical either way).  Out of core the
-        lanes flatten too, so they take the resident probe path."""
+        lanes flatten too, so they take the resident probe path.  Under a
+        mesh ``_probe_dev`` stays replicated on the engine's own tables,
+        as in ``repro``; only flattened lanes take the sharded route."""
         if self.tier is None and self.resident is None:
             return self._probe_dev(long_ids, mat)
         B, M = np.shape(mat)
@@ -428,6 +669,7 @@ class TorchEngine(DeviceEngine):
         self.pi = pi if pi is not None else (
             build_paged_index(self.fi, page_size)
             if (paged or self._wants_store()) else None)
+        self._bind_mesh(None)
         if self.pi is not None:
             self.pi = self._attach_store(self.pi)
 

@@ -29,10 +29,16 @@ card):
   resident); prints the store's geometry and, after the boolean
   workload, the cache's faults, evictions and hit rate (the page is
   ``REPRO_PAGE_SIZE`` symbols, else 2,048);
-* ``--refreshes N``: grow the collection N times by ``GROWTH_DOCS``
-  documents of a ``PostingsSource`` (new documents only), rebuild it with
-  the same builder, hot-swap it in (``QueryServer.rebuild``) and check 8
-  conjunctions against ``np.intersect1d`` after each swap;
+* ``--data-shards N``: serve list-sharded over the first N devices on a
+  ``data`` mesh axis (``QueryServer(mesh=...)``; the served and the
+  ingest server both); on ``--device cuda`` the devices are the cards, on
+  ``--device cpu`` the CPU counts as one device; the host engine has no
+  mesh and refuses it;
+* ``--refresh N`` (alias ``--refreshes``): grow the collection N times by
+  ``--growth-docs`` documents (default 500) of a ``PostingsSource`` (new
+  documents only), rebuild it with the same builder, hot-swap it in
+  (``QueryServer.rebuild``) and check 8 conjunctions against
+  ``np.intersect1d`` after each swap;
 * ``--ingest-rate N``: stream N documents a round, for 6 rounds, into a
   fresh coverage corpus served by the same engine through the segmented
   index (``QueryServer.enable_ingest``, delta budget
@@ -53,9 +59,6 @@ import argparse
 import time
 
 import numpy as np
-
-#: documents each ``--refreshes`` version adds
-GROWTH_DOCS = 500
 
 
 def boolean_workload(num_lists, lengths, n_queries=64, seed=0,
@@ -143,11 +146,15 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
                   builder: str = "host", refreshes: int = 0,
                   store: str | None = None,
                   resident_pages: int | None = None,
-                  ingest_rate: int = 0) -> None:
+                  ingest_rate: int = 0, data_shards: int = 0,
+                  growth_docs: int = 500) -> None:
     from ..build import make_builder
     from ..kernels import resolve_device
     from ..serve.query_serve import QueryServer
 
+    if data_shards and engine == "host":
+        raise SystemExit("--data-shards shards the torch and cuda engines; "
+                         "the host engine has no mesh")
     if engine != "host" or builder != "host":
         resolve_device(device)        # no card: raise before the build
     # the cuda builder counts against a static candidate table, so give
@@ -164,9 +171,21 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
           f"seed {seed}); [{builder}] Re-Pair built "
           f"{res.grammar.num_rules} rules from {n_sym} postings in "
           f"{dt:.2f}s")
+    mesh = None
+    if data_shards:
+        import torch
+        from ..distributed import Mesh
+        devs = (["cpu"] if torch.device(device).type == "cpu" else
+                [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        if data_shards > len(devs):
+            raise SystemExit(f"--data-shards {data_shards} > "
+                             f"{len(devs)} available devices")
+        mesh = Mesh(devs[:data_shards])
+        print(f"list-sharded dispatch over data axis: {data_shards} "
+              f"device(s)")
     srv = QueryServer(res, max_short_len=256, engine=engine, device=device,
                       batch_window=batch_window, codec=codec, store=store,
-                      resident_pages=resident_pages)
+                      resident_pages=resident_pages, mesh=mesh)
     print(f"engine {engine} on "
           f"{getattr(srv.engine, 'device', 'host')}")
     if srv.engine.tier is not None:
@@ -262,7 +281,7 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
         # PostingsSource (doc ids continue after the base corpus), rebuild
         # with the same builder, hot-swap, keep answering
         from ..data import PostingsSource
-        src = PostingsSource(base_docs=num_docs, growth_docs=GROWTH_DOCS,
+        src = PostingsSource(base_docs=num_docs, growth_docs=growth_docs,
                              vocab=vocab, mean_doc_len=120, seed=seed)
         inv = {int(t): l.tolist() for t, l in zip(term_ids, lists)}
         n_docs = num_docs
@@ -280,7 +299,7 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
             for (a, b), got in zip(q, srv.and_batch(q)):
                 np.testing.assert_array_equal(
                     got, np.intersect1d(new_lists[a], new_lists[b]))
-            print(f"refresh v{v}: +{GROWTH_DOCS} docs -> {len(new_lists)} "
+            print(f"refresh v{v}: +{growth_docs} docs -> {len(new_lists)} "
                   f"lists / {sum(len(l) for l in new_lists)} postings "
                   f"rebuilt [{builder}] + swapped in {dt:.2f}s (index "
                   f"version {srv.version}), serving verified")
@@ -314,7 +333,8 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
         srv2 = QueryServer(bld.build_grammar(inv_of(docs[:48])),
                            max_short_len=256, engine=engine, device=device,
                            batch_window=batch_window, codec=codec,
-                           store=store, resident_pages=resident_pages)
+                           store=store, resident_pages=resident_pages,
+                           mesh=mesh)
         budget = int(os.environ.get("REPRO_DELTA_BUDGET", "12"))
         srv2.enable_ingest(delta_budget=budget, compact_fanout=2,
                            builder=bld)
@@ -386,9 +406,15 @@ def main() -> None:
                     default="host",
                     help="construction backend (repro_torch.build); torch "
                          "and cuda build on --device")
-    ap.add_argument("--refreshes", type=int, default=0,
-                    help="after serving, grow the collection, rebuild and "
-                         "hot-swap the index this many times")
+    ap.add_argument("--refresh", "--refreshes", dest="refresh", type=int,
+                    default=0,
+                    help="after serving, rebuild+hot-swap the index this "
+                         "many times from a growing PostingsSource")
+    ap.add_argument("--growth-docs", type=int, default=500,
+                    help="documents each --refresh version adds")
+    ap.add_argument("--data-shards", type=int, default=0,
+                    help="shard the index across N devices on a 'data' "
+                         "mesh axis (0 = unsharded)")
     ap.add_argument("--store", default=None, choices=("memory", "mmap"),
                     help="out-of-core page store: serve the compressed "
                          "stream from a page store behind the bounded "
@@ -407,9 +433,10 @@ def main() -> None:
                   concurrency=args.concurrency, topk=args.topk,
                   batch_window=args.batch_window, num_docs=args.num_docs,
                   vocab=args.vocab, seed=args.seed, codec=args.codec,
-                  builder=args.builder, refreshes=args.refreshes,
+                  builder=args.builder, refreshes=args.refresh,
                   store=args.store, resident_pages=args.resident_pages,
-                  ingest_rate=args.ingest_rate)
+                  ingest_rate=args.ingest_rate, data_shards=args.data_shards,
+                  growth_docs=args.growth_docs)
 
 
 if __name__ == "__main__":

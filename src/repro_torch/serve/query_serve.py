@@ -53,7 +53,13 @@ scheduler runs one compaction step per tick.  Every segment engine is
 made with the serving engine's own construction knobs, so on the card
 each segment is served by the same kernels, on the same device.
 
-Not ported yet: ``mesh`` sharding.
+**List-sharded serving**: ``mesh`` (a
+:class:`~repro_torch.distributed.Mesh`, the devices of its ``data``
+axis) shards the Re-Pair probe rounds of the torch and cuda engines over
+the mesh's devices (replicated grammar, list-partitioned stream, a max
+across the shards); the host engine ignores it, as in ``repro``.  Every engine the server makes —
+``swap_index``, ``rebuild``, every segment under ingest — is sharded the
+same way, each over its own index.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ import numpy as np
 from ..build import BuildConfig, Builder, make_builder
 from ..core.index import DEFAULT_PAGE
 from ..core.repair import RePairResult
+from ..distributed import Mesh
 from ..engine import Engine, make_engine
 from ..kernels import resolve_device
 from ..query import Node, PlanNode, QueryExecutor
@@ -79,7 +86,8 @@ class QueryServer:
                  batch_window: int | None = None,
                  codec: str | None = None,
                  store: str | None = None,
-                 resident_pages: int | None = None):
+                 resident_pages: int | None = None,
+                 mesh: Mesh | None = None):
         self._engine_name = engine
         #: where rebuild() runs a device builder named by string
         self._device = device
@@ -92,7 +100,7 @@ class QueryServer:
         if engine in ("torch", "cuda"):
             self._device = resolve_device(device)
             kwargs.update(max_short_len=max_short_len, B=B,
-                          device=self._device)
+                          device=self._device, mesh=mesh)
             if engine == "torch":
                 kwargs["paged"] = paged
         self._engine_kwargs = kwargs
@@ -206,8 +214,8 @@ class QueryServer:
     def _segment_engine(self, res: RePairResult) -> Engine:
         """Engine factory for flushed and compacted segments: the SAME
         backend and construction knobs as the serving engine (device,
-        codec tier, page size, out-of-core store), so every segment gets
-        its own decode LRU and, out of core, its own page store and
+        codec tier, page size, mesh, out-of-core store), so every segment
+        gets its own decode LRU and, out of core, its own page store and
         resident pool."""
         return make_engine(self._engine_name, res, **self._engine_kwargs)
 

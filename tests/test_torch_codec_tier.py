@@ -21,6 +21,8 @@ bit:
   intersections, and merged rounds with their lane ledger and
   ``codec_dispatches``;
 * **server** — ``QueryServer(codec=...)`` boolean and ranked workloads;
+* **sharded** — each tiered mode on a ``TorchEngine`` with a mesh of 1
+  and 2 CPU shards, beside ``JnpEngine`` on a 1-device mesh;
 * **selection and caching** — ``REPRO_CODEC``, the bounded version-keyed
   EF pack cache and its flush on ``swap_index``;
 * **carry-over** — a tier rebuilt from the JAX package's arrays serves
@@ -531,3 +533,44 @@ def test_launcher_codec_tier(capsys):
     out = capsys.readouterr().out
     assert "codec tier [adaptive]" in out and "bits/posting" in out
     assert "ranked spot checks OK" in out
+
+
+# -- list-sharded (tests/test_query_plan.py:185, its fourth engine) ----------
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("codec", TIERED)
+def test_mixed_codecs_sharded(corpus, codec, shards):
+    """Every codec assignment under a mesh: Re-Pair probes sharded, EF and
+    bitmap probes replicated; the planner's, svs and bys answers equal the
+    oracle and the JAX package's 1-device-mesh engine, and the ranked
+    workload stays bit-identical."""
+    import jax
+    from jax.sharding import Mesh as MeshJax
+    from repro.query import QueryExecutor as ExecJax
+
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    from repro_torch.query import QueryExecutor, search_topk
+    lists, rj, rt = corpus
+    eng = TorchEngine(rt, max_short_len=MAX_SHORT, device="cpu", codec=codec,
+                      mesh=Mesh(["cpu"] * shards))
+    ref = JnpEngine(rj, max_short_len=MAX_SHORT, codec=codec,
+                    mesh=MeshJax(np.array(jax.devices()[:1]), ("data",)))
+    qj, qt, bags = _workloads(lists, 10, 4)
+    D.reset_dispatches()
+    for algo in (None, "svs", "bys"):
+        ex, exj = (QueryExecutor(eng, force_algo=algo),
+                   ExecJax(ref, force_algo=algo))
+        for q, j in zip(qt, qj):
+            got = ex.search(q)
+            np.testing.assert_array_equal(got, exj.search(j),
+                                          err_msg=f"{algo} {q!r}")
+            np.testing.assert_array_equal(got,
+                                          naive_eval(q, lists, rj.universe))
+    for bag in bags:
+        got = search_topk(eng, bag, 10)
+        od, osc = rank_oracle(lists, rj.universe, bag, 10)
+        np.testing.assert_array_equal(got.docs, od)
+        np.testing.assert_array_equal(got.scores, osc)
+    if eng.tier.counts()["repair"]:        # forced ef / bitmap have none
+        assert D.DISPATCHES["sharded_next_geq"] > 0

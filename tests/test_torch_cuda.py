@@ -62,6 +62,9 @@ installed:
   half depth and 1,037 symbols) over a real grammar;
 * K1's one-shot surface (``next_geq``, ``next_geq_probe``,
   ``list_intersect`` of an index) on the card == with ``device="cpu"``;
+* list-sharded serving: ``QueryServer(mesh=...)`` on ``[cuda:0]`` and
+  ``[cuda:0, cuda:0]`` == ``device="cpu"``, the sharded dispatch counted,
+  K1 and K2 still launched;
 * streaming ingestion: interleaved insert and search through a
   ``QueryServer(engine="cuda")`` on the card, flushed and compacted by the
   cuda builder (K4), a segment of one document among them (an empty
@@ -209,6 +212,51 @@ def test_cuda_engine_on_card_matches_cpu(card, clists, cres):
         np.testing.assert_array_equal(g.scores, w.scores)
     assert KR.LAUNCHES["list_intersect"] > n0["list_intersect"]
     assert KR.LAUNCHES["page_score"] > n0["page_score"]
+
+
+@pytest.mark.parametrize("shards_n", [1, 2])
+def test_sharded_engine_on_card_matches_cpu(card, clists, cres, shards_n):
+    """List-sharded serving on the card: a mesh of ``[cuda:0]`` and of
+    ``[cuda:0, cuda:0]`` gives the answers of ``device="cpu"``; the
+    merged rounds take the sharded dispatch, K1 on every shard,
+    ``_probe_dev`` still launches K1 and the ranked decodes K2.  A CPU
+    mesh under a card engine raises."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    from repro_torch.serve import QueryServer
+    mesh = Mesh([card] * shards_n)
+    srv = QueryServer(cres, engine="cuda", device=card, mesh=mesh,
+                      batch_window=8)
+    cpu = QueryServer(cres, engine="cuda", device="cpu", batch_window=8)
+    shards = srv.engine._sharded_next_geq.shards
+    assert all(t.device == card for s in shards
+               for t in s["tables"].values())
+    assert all("c_syms_pg" in s["tables"] for s in shards) == (shards_n > 1)
+    lids, xs = _lanes(clists, cres.universe, n=500)
+    n0 = dict(KR.LAUNCHES)
+    D.reset_dispatches()
+    np.testing.assert_array_equal(srv.next_geq_batch(lids, xs),
+                                  cpu.next_geq_batch(lids, xs))
+    # the sharded round probes every shard with K1
+    assert KR.LAUNCHES["list_intersect"] - n0["list_intersect"] == len(shards)
+    qs = ["0 AND 12", "(13 AND 2) OR NOT 15", "12 AND 13 AND 14",
+          "3 AND NOT 14"]
+    for algo in (None, "svs"):
+        for g, w in zip(srv.search_many(qs, algo), cpu.search_many(qs, algo)):
+            np.testing.assert_array_equal(g, w)
+    pairs = [(0, 12), (13, 2), (15, 16), (3, 14)]
+    for g, w in zip(srv.and_batch(pairs), cpu.and_batch(pairs)):
+        np.testing.assert_array_equal(g, w)
+    for bag in ([15, 16], [0, 12, 13]):
+        g, w = srv.search_topk(bag, 10), cpu.search_topk(bag, 10)
+        np.testing.assert_array_equal(g.docs, w.docs)
+        np.testing.assert_array_equal(g.scores, w.scores)
+    assert D.DISPATCHES["sharded_next_geq"] > 0
+    assert KR.LAUNCHES["list_intersect"] > n0["list_intersect"]
+    assert KR.LAUNCHES["page_score"] > n0["page_score"]
+    with pytest.raises(ValueError, match="not a device of the mesh"):
+        QueryServer(cres, engine="cuda", device=card,
+                    mesh=Mesh(["cpu"]))
 
 
 @pytest.fixture(scope="module")

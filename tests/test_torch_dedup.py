@@ -5,7 +5,9 @@ prefetch must be invisible in results: every (dedup, memo) on/off
 combination returns exactly the serial all-off path's answers on every
 port engine — ``host``, ``torch`` flat and paged, ``cuda`` (on the CPU,
 the kernels' plain versions; paged engines at page 128) — for boolean, ranked top-k, mixed-codec and
-out-of-core (~10% resident budget) serving, and equals the oracle.  The
+out-of-core (~10% resident budget) serving, and equals the oracle; the
+torch and cuda engines also list-sharded at 1 and 2 CPU shards
+(``test_dedup.py:113``).  The
 queries are the JAX package's seeded random ASTs, rebuilt as the port's
 nodes.
 
@@ -136,6 +138,25 @@ def test_dedup_memo_bit_identity(dlists, dres, ename):
             np.testing.assert_array_equal(
                 got, naive_eval(q, dlists, dres.universe),
                 err_msg=f"{ename}/{label}")
+
+
+@pytest.mark.parametrize("ename", ("torch", "cuda"))
+@pytest.mark.parametrize("shards", [1, 2])
+def test_sharded_dispatch_bit_identity(dlists, dres, shards, ename):
+    """The deduped and memoized rounds ride the sharded dispatch
+    (``tests/test_dedup.py:113``), at 1 and 2 CPU shards."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    queries = _workload(len(dlists), 10, seed_off=1) * 2
+    eng = _on(_make(ename, dres, mesh=Mesh(["cpu"] * shards)))
+    sch = QueryScheduler(eng, batch_window=8, result_cache_size=0)
+    D.reset_dispatches()
+    for algo in (None, "svs"):
+        for q, got in zip(queries, sch.search_many(queries, algo)):
+            np.testing.assert_array_equal(
+                got, naive_eval(q, dlists, dres.universe))
+    assert D.DISPATCHES["sharded_next_geq"] > 0
+    assert sch.stats()["real_lanes"] >= sch.stats()["unique_lanes"]
 
 
 @pytest.mark.parametrize("ename", ("host", "cuda"))

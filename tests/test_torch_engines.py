@@ -7,7 +7,10 @@ the JAX package's counterpart returns on the same postings:
 * ``CudaEngine(device="cpu")`` — the plain versions of ``list_intersect``
   and ``page_score`` behind the copied router — against
   ``PallasEngine(interpret=True)``, at page 2048 and at page 128;
-* the port's ``HostEngine`` copy against the original.
+* the port's ``HostEngine`` copy against the original;
+* list-sharded ``TorchEngine`` / ``CudaEngine`` at 1 and 2 CPU shards
+  against the unsharded engine and ``JnpEngine`` on a 1-device mesh
+  (``tests/test_paged.py:229``, ``tests/test_topk.py:100``).
 
 Doc ids, next_geq values and the merged-round lane ledger are compared
 exactly, BM25 scores bit for bit.
@@ -249,3 +252,64 @@ def test_registry_and_unported_options(results, monkeypatch):
     assert mem.store.kind == "memory" and mem.pi is not None   # paged
     assert make_engine("torch", results[1], device="cpu",
                        store="none").store is None
+
+
+# -- list-sharded dispatch (tests/test_paged.py:229, tests/test_topk.py:100) --
+
+def _jax_mesh():
+    import jax
+    from jax.sharding import Mesh as MeshJax
+    return MeshJax(np.array(jax.devices()[:1]), ("data",))
+
+
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_sharded_round_trip(results, elists, shards, engine):
+    """A sharded engine round-trips: the sharded dispatch equals the
+    unsharded engine and the JAX package's 1-device-mesh ``shard_map``
+    engine bit-exactly, and the dispatch counter moves."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    rj, rt = results
+    eng = make_engine(engine, rt, max_short_len=MAX_SHORT, device="cpu",
+                      mesh=Mesh(["cpu"] * shards))
+    assert eng._sharded_next_geq is not None
+    plain = make_engine(engine, rt, max_short_len=MAX_SHORT, device="cpu")
+    ref = JnpEngine(rj, max_short_len=MAX_SHORT, mesh=_jax_mesh())
+    assert ref._sharded_next_geq is not None
+    rng = np.random.default_rng(11)
+    lids = rng.integers(0, len(elists), 300).astype(np.int32)
+    xs = rng.integers(0, rt.universe + 10, 300).astype(np.int32)
+    D.reset_dispatches()
+    got = eng.next_geq_batch(lids, xs)
+    assert D.DISPATCHES["sharded_next_geq"] == 1
+    np.testing.assert_array_equal(got, plain.next_geq_batch(lids, xs))
+    np.testing.assert_array_equal(got, ref.next_geq_batch(lids, xs))
+    np.testing.assert_array_equal(got, _oracle(elists, lids, xs))
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_topk_sharded_dispatch(results, elists, shards):
+    """The membership probes of the scoring rounds ride the sharded
+    dispatch: docs and float32 scores equal the oracle and the JAX
+    package's 1-device-mesh engine bit for bit."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    rj, rt = results
+    eng = TorchEngine(rt, max_short_len=MAX_SHORT, device="cpu",
+                      mesh=Mesh(["cpu"] * shards))
+    ref = JnpEngine(rj, max_short_len=MAX_SHORT, mesh=_jax_mesh())
+    rng = np.random.default_rng(13)
+    D.reset_dispatches()
+    for _ in range(5):
+        bag = sorted(int(t) for t in rng.choice(len(elists), 3,
+                                                replace=False))
+        got = search_topk(eng, bag, 5)
+        want = search_topk_jax(ref, bag, 5)
+        od, osc = rank_oracle(elists, rt.universe, bag, 5)
+        np.testing.assert_array_equal(got.docs, od)
+        np.testing.assert_array_equal(got.scores, osc)
+        np.testing.assert_array_equal(got.docs, want.docs)
+        np.testing.assert_array_equal(got.scores.view(np.uint32),
+                                      want.scores.view(np.uint32))
+    assert D.DISPATCHES["sharded_next_geq"] > 0

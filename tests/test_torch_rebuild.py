@@ -132,3 +132,26 @@ def test_launcher_refreshes(capsys, builder):
     for v in (1, 2):
         assert f"refresh v{v}: +500 docs" in out
         assert f"index version {v}), serving verified" in out
+
+
+def test_launcher_data_shards_refresh_growth_docs(capsys, monkeypatch):
+    """``repro``'s spelling of the launcher's flags: ``--data-shards 1
+    --refresh 1 --growth-docs 50`` on the CPU (the CPU is one device),
+    and ``--refreshes`` as an alias; past the device count it exits."""
+    base = ["serve", "--engine", "cuda", "--device", "cpu", "--n", "8",
+            "--num-docs", "120", "--vocab", "160", "--seed", "1"]
+    monkeypatch.setattr("sys.argv", base + [
+        "--concurrency", "4", "--topk", "5", "--data-shards", "1",
+        "--refresh", "1", "--growth-docs", "50", "--ingest-rate", "3"])
+    launch.main()
+    out = capsys.readouterr().out
+    assert "list-sharded dispatch over data axis: 1 device(s)" in out
+    assert "refresh v1: +50 docs" in out
+    assert "index version 1), serving verified" in out
+    assert "ingest gate OK" in out
+    monkeypatch.setattr("sys.argv", base + ["--refreshes", "1"])
+    launch.main()
+    assert "refresh v1: +500 docs" in capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", base + ["--data-shards", "2"])
+    with pytest.raises(SystemExit, match="--data-shards 2 > 1 available"):
+        launch.main()

@@ -17,7 +17,9 @@ engine: the delta tier replays from the one-integer log cursor, a killed
 flush leaves the previous segment set serving, compaction replays to the
 same layout; the delta-budget env, the telemetry, the result cache keyed
 on the content epoch, ``swap_index`` detaching the manager, and every
-round of a segment dispatched on that segment's own engine.
+round of a segment dispatched on that segment's own engine.  The gate
+also runs list-sharded (torch and cuda engines with a mesh of 1 and 2
+CPU shards, ``test_segment.py:108``): every segment engine is sharded.
 """
 
 import os
@@ -145,6 +147,51 @@ def test_interleaved_equals_rebuild_every_step(name):
     assert st["flushes"] >= 3 and st["segments"] >= 2, st
     assert st["compactions"] >= 1, st       # background merges ran
     assert st["ingested_docs"] == 32, st
+
+
+@pytest.mark.parametrize("name", ["torch", "cuda"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_interleaved_equals_rebuild_sharded(shards, name):
+    """The same gate through the list-sharded dispatch
+    (``tests/test_segment.py:108``): every segment engine the server makes
+    is sharded over the mesh, and every step equals the oracle and
+    ``repro``'s server, layout and telemetry included."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    docs = _corpus(40)
+    base = _invert(docs[:28])
+    srv = _server(make_builder("host").build_grammar(base), name,
+                  mesh=Mesh(["cpu"] * shards))
+    ref = ServerJax(make_builder_jax("host").build_grammar(base),
+                    max_short_len=64, engine="host")
+    srv.enable_ingest(delta_budget=5, compact_fanout=2)
+    ref.enable_ingest(delta_budget=5, compact_fanout=2)
+    rng = np.random.default_rng(SEED + 2)
+    D.reset_dispatches()
+    for i, d in enumerate(docs[28:]):
+        assert srv.insert(d) == ref.insert(d)
+        cur = docs[:29 + i]
+        lists, n = _invert(cur), len(cur)
+        qs = _queries(rng)
+        for q, got, other in zip(qs, srv.search_many(qs, "svs"),
+                                 ref.search_many([_jax_node(q)
+                                                  for q in qs])):
+            np.testing.assert_array_equal(got, naive_eval(q, lists, n))
+            np.testing.assert_array_equal(got, other)
+        ts = sorted(int(t) for t in rng.choice(VOCAB, 3, replace=False))
+        rr = srv.search_topk(ts, 8)
+        od, osc = rank_oracle(lists, n, ts, 8)
+        np.testing.assert_array_equal(rr.docs, od)
+        np.testing.assert_array_equal(rr.scores, osc)
+        assert _layout(srv.segmented.segments) == \
+            _layout(ref.segmented.segments)
+    engines = [s.engine for s in srv.segmented.segments
+               if s.engine is not None]
+    assert len(engines) >= 2
+    for eng in engines:
+        assert len(eng._sharded_next_geq.shards) == shards
+    assert D.DISPATCHES["sharded_next_geq"] > 0
+    assert srv.serve_stats()["compactions"] >= 1
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

@@ -7,7 +7,9 @@ versions, and engine ``torch``) and a JAX-package ``QueryServer`` then run
 the same ``boolean_workload`` and ``ranked_workload`` streams
 (``benchmarks/common.py`` and the port's copies of them): per-query doc
 ids, top-k order and float32 scores must be identical, serially and
-coalesced at concurrency 8, at page 2048 and at page 128.
+coalesced at concurrency 8, at page 2048 and at page 128.  The same
+gates run list-sharded (``QueryServer(mesh=...)``) at 1 and 2 CPU shards
+beside the JAX package's 1-device-mesh server.
 """
 
 import numpy as np
@@ -164,3 +166,85 @@ def test_launcher_queries_tier(capsys):
     assert "spot checks OK" in out
     assert "ranked spot checks OK" in out
     assert "oracle-verified" in out
+
+
+# -- list-sharded serving (tests/test_paged.py:243, tests/test_scheduler.py:103,
+# tests/test_query_plan.py:210) -----------------------------------------------
+
+def _meshes(shards):
+    import jax
+    from jax.sharding import Mesh as MeshJax
+
+    from repro_torch.distributed import Mesh
+    return (Mesh(["cpu"] * shards),
+            MeshJax(np.array(jax.devices()[:1]), ("data",)))
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_query_server_paged_and_meshed(corpus, shards):
+    """A paged server with a mesh: pairs equal ``np.intersect1d``, probes
+    equal the host engine's."""
+    from repro_torch.engine import HostEngine
+    lists, _, rt = corpus
+    mesh, _ = _meshes(shards)
+    srv = QueryServer(rt, engine="torch", device="cpu", paged=True,
+                      page_size=128, mesh=mesh)
+    assert srv.engine._sharded_next_geq is not None
+    qs = [(0, 1), (2, len(lists) - 3), (5, 40)]
+    for (a, b), got in zip(qs, srv.and_batch(qs)):
+        np.testing.assert_array_equal(got, np.intersect1d(lists[a],
+                                                          lists[b]))
+    lids = np.asarray([0, 1, 7], np.int32)
+    xs = np.asarray([int(lists[0][0]), int(lists[1][-1]) + 1,
+                     int(lists[7][len(lists[7]) // 2])], np.int32)
+    np.testing.assert_array_equal(srv.next_geq_batch(lids, xs),
+                                  HostEngine(rt).next_geq_batch(lids, xs))
+
+
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_scheduler_sharded_dispatch(corpus, shards, engine):
+    """The merged rounds ride the sharded dispatch: coalesced answers
+    equal the oracle and the JAX package's meshed server, with the same
+    lane ledger, and the ranked workload stays bit-identical."""
+    from repro_torch.engine import device as D
+    lists, rj, rt = corpus
+    mesh, mesh_jax = _meshes(shards)
+    srv = QueryServer(rt, engine=engine, device="cpu", batch_window=8,
+                      mesh=mesh)
+    ref = ServerJax(rj, engine="jnp", batch_window=8, mesh=mesh_jax)
+    qj, qt, bags = _workloads(lists, 32, 6)
+    D.reset_dispatches()
+    for algo in (None, "svs"):     # the planner's choice, then forced svs
+        for q, g, w in zip(qt, srv.search_many(qt, algo),
+                           ref.search_many(qj, algo)):
+            np.testing.assert_array_equal(g, w, err_msg=repr(q))
+            np.testing.assert_array_equal(
+                g, naive_eval(q, lists, rj.universe))
+    assert D.DISPATCHES["sharded_next_geq"] > 0
+    st, sj = srv.serve_stats(), ref.serve_stats()
+    for key in ("completed", "real_lanes", "unique_lanes", "pad_lanes"):
+        assert st[key] == sj[key], key
+    for bag, g in zip(bags, srv.search_topk_many(bags, 10)):
+        od, osc = rank_oracle(lists, rj.universe, bag, 10)
+        np.testing.assert_array_equal(g.docs, od)
+        np.testing.assert_array_equal(g.scores, osc)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_sharded_dispatch_path(corpus, shards):
+    """The executor's svs and bys probes ride the sharded engine (bys
+    stays replicated, as in the JAX package): every forced-algorithm
+    answer equals the oracle."""
+    from repro_torch.query import QueryExecutor
+    from repro_torch.engine import TorchEngine
+    lists, rj, rt = corpus
+    mesh, _ = _meshes(shards)
+    eng = TorchEngine(rt, max_short_len=64, device="cpu", mesh=mesh)
+    _, qt, _ = _workloads(lists, 12, 0)
+    for algo in ("svs", "bys"):
+        ex = QueryExecutor(eng, force_algo=algo)
+        for q in qt:
+            np.testing.assert_array_equal(
+                ex.search(q), naive_eval(q, lists, rj.universe),
+                err_msg=f"{algo} {q!r}")

@@ -75,7 +75,8 @@ def test_imports_without_jax_or_repro():
             "repro_torch.kernels.bucket_intersect.ops",
             "repro_torch.kernels.bitmap_and.ops", "repro_torch.index.hybrid",
             "repro_torch.index.positional",
-            "repro_torch.launch.quickstart"} <= mods
+            "repro_torch.launch.quickstart", "repro_torch.distributed",
+            "repro_torch.distributed.sharding"} <= mods
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -144,6 +145,31 @@ def test_codec_entry_points_raise_without_card(no_card, tiny_res):
     np.testing.assert_array_equal(
         srv.search("2 AND 3"),
         np.intersect1d(tiny_res.decode_list(2), tiny_res.decode_list(3)))
+
+
+def test_mesh_entry_points_raise_without_card(no_card, tiny_res):
+    """A mesh of cards needs a card: the engine, the server and the
+    launcher's ``--data-shards`` raise without one (nothing falls back to
+    the CPU), and a CPU mesh serves with ``device="cpu"``."""
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    with pytest.raises(RuntimeError, match="is_available"):
+        QueryServer(tiny_res, mesh=Mesh(["cuda:0"]))
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_engine("cuda", tiny_res, device="cpu",
+                    mesh=Mesh(["cpu", "cuda:0"]))
+    with pytest.raises(RuntimeError, match="is_available"):
+        launch.serve_queries(4, num_docs=40, vocab=60, data_shards=1)
+    with pytest.raises(SystemExit, match="available devices"):
+        launch.serve_queries(4, engine="torch", device="cpu", num_docs=40,
+                             vocab=60, data_shards=2)
+    srv = QueryServer(tiny_res, device="cpu",
+                      mesh=Mesh(["cpu"] * 2))
+    D.reset_dispatches()
+    np.testing.assert_array_equal(
+        srv.search("0 AND 1", "svs"),
+        np.intersect1d(tiny_res.decode_list(0), tiny_res.decode_list(1)))
+    assert D.DISPATCHES["sharded_next_geq"] > 0
 
 
 def test_build_entry_points_raise_without_card(no_card, tiny_res):

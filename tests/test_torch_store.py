@@ -6,7 +6,8 @@ stream's pages) is BIT-IDENTICAL to the same engine fully resident, to
 the JAX package's counterpart under the same store and to the oracle —
 for ``host``, ``torch`` (paged) and ``cuda`` (on the CPU: K1's resident
 route runs its plain version), across boolean, ranked top-k and
-mixed-codec workloads.
+mixed-codec workloads; and ``test_store.py``'s ``"sharded"`` engine (a
+paged torch engine with a mesh of 1 and 2 CPU shards) out of core.
 
 Plus the pins of ``tests/test_store.py``: the LRU discipline, the
 bounded pool, the pool grown by an oversize tick, the fresh pool of
@@ -175,6 +176,54 @@ def test_outofcore_topk_bit_identical(name, slists, sres):
         np.testing.assert_array_equal(r.docs, od)
         np.testing.assert_array_equal(r.scores, osc)
     assert sch.stats()["page_faults"] > 0
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_outofcore_sharded_bit_identical(shards, slists, sres):
+    """``tests/test_store.py``'s ``"sharded"`` engine: a paged torch engine
+    with a mesh, out of core at ~10% residency.  The shards are cut from
+    the full stream before the store drops it (sharding is its own
+    residency: sharded probes fault nothing), the ranked decodes still
+    read the pool; boolean and ranked answers equal the engine fully
+    resident, the JAX package's meshed engine under the same store, and
+    the oracle."""
+    import jax
+    from jax.sharding import Mesh as MeshJax
+
+    from repro_torch.distributed import Mesh
+    from repro_torch.engine import device as D
+    rj, rt = sres
+    mesh = Mesh(["cpu"] * shards)
+    qs = _bool_queries(np.random.default_rng(SEED + 3), len(slists))
+    ref = QueryExecutor(_make("torch", rt, store=""))
+    want = [ref.search(q) for q in qs]
+    eng = _make("torch", rt, store="mmap", resident_pages=_budget(rt),
+                mesh=mesh)
+    assert eng.fi.c.numel() == 1 and eng.resident is not None
+    assert eng._sharded_next_geq is not None
+    D.reset_dispatches()
+    sch = QueryScheduler(eng, batch_window=8)
+    got = sch.search_many(qs) + sch.search_many(qs[:8], "svs")
+    assert D.DISPATCHES["sharded_next_geq"] > 0
+    jeng = JnpEngine(rj, max_short_len=64, paged=True, page_size=PAGE,
+                     store="mmap", resident_pages=_budget(rj),
+                     mesh=MeshJax(np.array(jax.devices()[:1]), ("data",)))
+    jgot = SchedJax(jeng, batch_window=8).search_many(qs)
+    for q, w, g, j in zip(qs, want, got, jgot):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, j)
+        np.testing.assert_array_equal(
+            g, naive_eval(ref.plan(q).node, slists, rt.universe))
+    for q, w, g in zip(qs, want, got[len(qs):]):
+        np.testing.assert_array_equal(g, w)
+    rng = np.random.default_rng(SEED + 5)
+    bags = [[int(x) for x in rng.choice(len(slists), size=3,
+                                        replace=False)] for _ in range(6)]
+    for bag, r in zip(bags, sch.search_topk_many(bags, 5)):
+        od, osc = rank_oracle(slists, rt.universe, bag, 5)
+        np.testing.assert_array_equal(r.docs, od)
+        np.testing.assert_array_equal(r.scores, osc)
+    assert eng.resident.stats()["page_faults"] > 0
 
 
 @pytest.mark.parametrize("name", CONFIGS)
