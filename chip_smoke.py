@@ -132,8 +132,30 @@ exits non-zero:
    unsharded answers and the oracles, and the largest sharded round's
    lanes, run again through the sharded route, equal the plain flat
    program over the whole index on the same lanes.
+12. lm — the LM serving tier (``repro_torch.serve.DecodeEngine`` over a
+   ``repro_torch.models.transformer.Transformer``; no kernel of the port
+   runs there, as no Pallas kernel runs in ``repro``'s).  12a: the five
+   LM archs' smoke configs on ``cuda:0`` against the same parameters on
+   the CPU (``init_params`` from a seeded CPU generator, then ``.to``),
+   6 requests each on the launcher's engine (4 lanes, 64 slots, 16 new
+   tokens), teacher-forced on the CPU run's tokens: the same inputs at
+   every prefill and step, logits within 2e-2, the same finished
+   requests.  12b: yi-6b (arXiv:2403.04652) at full width cut to 2
+   layers (870,338,560 parameters), a 64-token prompt and 8 decode ticks,
+   card against CPU, logits within 2e-2 × max|logit| and the argmax
+   equal wherever the CPU's top-2 margin exceeds that.  12c: yi-6b at
+   full width and depth (32 layers, 6,061,035,520 parameters, 12.12 GB in
+   bf16) initialised on the card from a seeded CUDA generator; gates:
+   ``prefill``'s last logits == ``forward``'s there (2e-2), one decode
+   step after a 63-token prefill == ``forward`` at position 63 (within
+   2e-2 × max|logit|), no NaN; then 16 requests with prompts of 64-512
+   tokens through ``DecodeEngine(max_batch=8, s_cache=2048,
+   max_new_tokens=32)``, every request finishing: tokens/s, prefill ms by
+   prompt length, decode ms per tick, ``max_memory_allocated``, the
+   device busy share of a profiled decode step, and that step's bytes
+   against the HBM bound, printed on the ``lm`` JSON line.
 
-The last lines are the ``kernels`` JSON line (per kernel: launches on its
+The last lines are the ``lm`` JSON line, the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
 the cuda build, K5-K8 in phase 8 — times and bounds at its main launch,
 ``path_ms``, its device time summed over the launches of its path, with
@@ -187,6 +209,15 @@ INGEST_BUDGET, INGEST_FANOUT = 256, 4
 #: phase 11: conjunctions sent through ``and_batch`` per mesh server, and
 #: the rounds of phase 10's stream run again under the 1-shard mesh
 MESH_PAIRS, MESH_INGEST_ROUNDS = 256, 2
+#: phase 12: the LM archs of 12a, the logit tolerance, and 12c's
+#: workload: requests, prompt lengths, the engine's lanes, cache slots and
+#: new tokens, and the decode step profiled (all lanes live by then)
+LM_ARCHS = ("qwen3-32b", "yi-6b", "minicpm3-4b", "granite-moe-3b-a800m",
+            "phi3.5-moe-42b-a6.6b")
+LM_TOL = 2e-2
+LM_REQUESTS, LM_PROMPTS = 16, (64, 512)
+LM_SERVE = dict(max_batch=8, s_cache=2048, max_new_tokens=32)
+LM_PROFILE_STEP = 8
 
 
 def _nvidia_smi() -> str:
@@ -1881,6 +1912,311 @@ def _mesh(res, lists, queries, bags, runs, tiers, wrappers, seed) -> dict:
     return out
 
 
+def lm_recorded(model, scfg, prompts, device, forced=None):
+    """``DecodeEngine`` over ``prompts`` with every prefill's and decode
+    step's inputs and logits recorded; with ``forced`` (another run's
+    records) the model's logits are replaced by that run's, so the engine
+    follows its tokens (teacher forcing).  Returns (finished, events)."""
+    import torch
+    from repro_torch.serve import DecodeEngine
+    eng = DecodeEngine(model, scfg, device=device)
+    events = []
+    prefill, step = model.prefill, model.decode_step
+
+    def record(inputs, logits):
+        events.append((inputs, eng.live.copy(), logits.float().cpu()))
+        if forced is None:
+            return logits
+        return forced[len(events) - 1][2].to(logits.device)
+
+    def rec_prefill(tokens):
+        logits, cache = prefill(tokens)
+        return record((tokens.clone(),), logits), cache
+
+    def rec_step(token, cache, position):
+        logits, cache = step(token, cache, position)
+        return record((token.clone(), position.clone()), logits), cache
+
+    model.prefill, model.decode_step = rec_prefill, rec_step
+    try:
+        for pr in prompts:
+            eng.submit(pr)
+        with torch.inference_mode():
+            return eng.run_until_drained(), events
+    finally:
+        del model.prefill, model.decode_step
+
+
+def _lm_forced(cpu, card, scfg, prompts, tol=None) -> dict:
+    """The engine on the CPU, then on the card teacher-forced on the CPU's
+    tokens: every prefill and step must see the same inputs and finish the
+    same requests; the logits must agree within ``tol`` (by default
+    ``LM_TOL`` × the CPU run's max|logit|), and the argmax must agree
+    wherever the CPU's top-2 margin exceeds it."""
+    import numpy as np
+    import torch
+    done_c, ev_c = lm_recorded(cpu, scfg, prompts, "cpu")
+    done_g, ev_g = lm_recorded(card, scfg, prompts, card.device,
+                                forced=ev_c)
+    peak = max(float(e[2].abs().max()) for e in ev_c)
+    tol = LM_TOL * peak if tol is None else tol
+    if done_g != done_c or len(done_c) != len(prompts) \
+            or len(ev_g) != len(ev_c):
+        raise SystemExit("[lm] the card's engine finished other requests "
+                         "than the CPU's")
+    err, margins, rows = 0.0, 0, 0
+    for (ig, lg, xg), (ic, lc, xc) in zip(ev_g, ev_c):
+        if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(ig, ic)) \
+                or not np.array_equal(lg, lc):
+            raise SystemExit("[lm] the card's engine saw other inputs than "
+                             "the CPU's")
+        if not torch.isfinite(xg).all():
+            raise SystemExit("[lm] NaN or inf in the card's logits")
+        err = max(err, float((xg - xc).abs().max()))
+        lanes = [0] if len(ig) == 1 else np.nonzero(lc)[0]
+        for lane in lanes:
+            top2 = torch.topk(xc[lane], 2).values
+            rows += 1
+            if float(top2[0] - top2[1]) > tol:
+                margins += 1
+                if int(xg[lane].argmax()) != int(xc[lane].argmax()):
+                    raise SystemExit("[lm] argmax differs where the CPU's "
+                                     "top-2 margin exceeds the tolerance")
+    if err > tol:
+        raise SystemExit(f"[lm] card logits differ from the CPU's by {err} "
+                         f"> {tol}")
+    return dict(requests=len(done_c), tokens=sum(map(len, done_c)),
+                events=len(ev_c), max_abs_err=err, tol=tol,
+                max_abs_logit=peak, argmax_rows=rows,
+                argmax_checked=margins)
+
+
+def _lm_step_bytes(model, positions, batch: int) -> tuple[float, float]:
+    """The bytes one decode step must move: every parameter but the
+    embedding read once (the embedding's ``batch`` rows gathered), each
+    lane's valid cache slots read (k and v, every layer) and its new entry
+    written, and the float32 logits written; and the bf16 operations of
+    its products (2 per multiply-add)."""
+    cfg = model.cfg
+    per = 2                                            # bytes per bf16
+    w = sum(p.numel() * p.element_size() for n, p in
+            model.named_parameters() if n != "embed")
+    gather = batch * cfg.d_model * per
+    slots = sum(min(int(p), LM_SERVE["s_cache"] - 1) + 1 for p in positions)
+    kv_row = cfg.n_kv * cfg.head_dim * per * 2 * cfg.n_layers
+    kv = slots * kv_row + batch * kv_row
+    logits = batch * cfg.padded_vocab * 4
+    macs = batch * (cfg.param_count() - cfg.padded_vocab * cfg.d_model) \
+        + slots * cfg.n_heads * cfg.head_dim * 2 * cfg.n_layers
+    return float(w + gather + kv + logits), float(2 * macs)
+
+
+def _lm_busy(fn) -> dict:
+    """``fn`` once under ``torch.profiler`` (device activity only, after a
+    warm-up session, so that neither the profiler's start nor a host
+    profiler inflates the wall): its wall ms, the device-busy ms (every
+    kernel and copy, summed), the number of device activities and the
+    five largest entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [(e.key, getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3,
+            e.count) for e in prof.key_averages()]
+    dev = sorted((d for d in dev if d[1] > 0), key=lambda d: -d[1])
+    return dict(wall=wall, busy=sum(ms for _, ms, _ in dev),
+                events=sum(n for _, _, n in dev),
+                device=[(k[:80], ms) for k, ms, _ in dev[:5]])
+
+
+def _lm(seed: int, card) -> dict:
+    """Phase 12: the LM serving tier on ``card``.  Returns the ``lm``
+    line's object."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import DecodeEngine, ServeConfig
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    # 12a: the five smoke configs, card against CPU
+    t0 = time.perf_counter()
+    out["12a"] = {}
+    for name in LM_ARCHS:
+        cfg = get_arch(name).smoke_config
+        cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        gpu = copy.deepcopy(cpu).to(card)
+        prompts = [rng.integers(1, cfg.vocab, int(rng.integers(3, 12)))
+                   for _ in range(6)]
+        row = _lm_forced(cpu, gpu, ServeConfig(max_batch=4, s_cache=64,
+                                               max_new_tokens=16),
+                         prompts, tol=LM_TOL)
+        out["12a"][name] = row
+        print(f"[lm] 12a {name}: {row['requests']} requests, "
+              f"{row['tokens']} tokens, {row['events']} prefills + steps "
+              f"teacher-forced; max |logit card - cpu| "
+              f"{row['max_abs_err']:.6f} (tol {LM_TOL}), argmax equal on "
+              f"{row['argmax_checked']} of {row['argmax_rows']} rows")
+    out["12a_s"] = time.perf_counter() - t0
+
+    # 12b: yi-6b at full width, 2 layers, card against CPU
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("yi-6b").config, n_layers=2)
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    n_params = sum(p.numel() for p in cpu.parameters())
+    assert n_params == cfg.param_count()
+    prompt = rng.integers(1, cfg.vocab, 64)
+    row = _lm_forced(cpu, gpu, ServeConfig(max_batch=1, s_cache=128,
+                                           max_new_tokens=9), [prompt])
+    row.update(params=n_params, layers=cfg.n_layers, prompt=64,
+               decode_ticks=8, s=time.perf_counter() - t0)
+    out["12b"] = row
+    print(f"[lm] 12b yi-6b full width, 2 layers ({n_params:,} params): "
+          f"64-token prompt + 8 ticks teacher-forced; max |logit card - "
+          f"cpu| {row['max_abs_err']:.6f} (tol 2e-2 x max|logit| "
+          f"{row['max_abs_logit']:.4f} = {row['tol']:.6f}), argmax equal "
+          f"on {row['argmax_checked']} of {row['argmax_rows']} rows; "
+          f"{row['s']:.1f} s")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+    # 12c: yi-6b at full width and depth, on the card
+    t0 = time.perf_counter()
+    cfg = get_arch("yi-6b").config
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(card).manual_seed(seed), card)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert n_params == cfg.param_count()
+    c = {"params": n_params, "weight_bytes": w_bytes, "init_s": t_init}
+    with torch.inference_mode():
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab, (1, 64))).to(card)
+        full, _ = model(toks)
+        last, _ = model.prefill(toks)
+        gap = float((last - full[:, -1]).abs().max())
+        if not torch.allclose(last, full[:, -1], rtol=LM_TOL, atol=LM_TOL):
+            raise SystemExit(f"[lm] 12c prefill's last logits differ from "
+                             f"forward's by {gap}")
+        _, cache63 = model.prefill(toks[:, :-1])
+        cache = model.init_cache(1, 128)
+        for k, v in cache63.items():
+            cache[k][:, :, :63] = v
+        step, _ = model.decode_step(toks[:, -1].cpu(), cache,
+                                    np.asarray([63], np.int32))
+        peak = float(full[:, -1].abs().max())
+        dgap = float((step - full[:, -1]).abs().max())
+        if not dgap <= LM_TOL * peak:
+            raise SystemExit(f"[lm] 12c decode step differs from forward "
+                             f"at position 63 by {dgap} > 2e-2 x {peak}")
+        if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
+            raise SystemExit("[lm] 12c NaN or inf in the logits")
+        c.update(prefill_vs_forward=gap, decode_vs_forward=dgap,
+                 max_abs_logit=peak, decode_tol=LM_TOL * peak)
+        del full, cache, cache63
+    print(f"[lm] 12c yi-6b full width and depth ({n_params:,} params, "
+          f"{w_bytes / 1e9:.2f} GB) initialised on the card in "
+          f"{t_init:.2f} s; gates: prefill == forward at the last position "
+          f"(max diff {gap:.6f}), decode step == forward at position 63 "
+          f"(max diff {dgap:.6f}, tol {LM_TOL * peak:.6f}), no NaN")
+
+    scfg = ServeConfig(**LM_SERVE)
+    eng = DecodeEngine(model, scfg, device=card)
+    lens = [int(n) for n in rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1,
+                                         LM_REQUESTS)]
+    for n in lens:
+        eng.submit(rng.integers(1, cfg.vocab, n))
+    prefill, step = model.prefill, model.decode_step
+    pre_ms, tick_ms, prof = [], [], {}
+
+    def timed_prefill(tokens):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = prefill(tokens)
+        torch.cuda.synchronize()
+        pre_ms.append((int(tokens.shape[1]), (time.perf_counter() - t) * 1e3))
+        return r
+
+    def timed_step(token, cache, position):
+        if len(tick_ms) == LM_PROFILE_STEP:
+            res = []
+            prof.update(_lm_busy(lambda: res.append(step(token, cache,
+                                                         position))))
+            prof["positions"] = position.tolist()
+            tick_ms.append(None)
+            return res[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = step(token, cache, position)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    model.prefill, model.decode_step = timed_prefill, timed_step
+    try:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            done = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    if len(done) != LM_REQUESTS:
+        raise SystemExit(f"[lm] 12c {len(done)} of {LM_REQUESTS} requests "
+                         f"finished")
+    toks_out = sum(map(len, done))
+    ticks = [t for t in tick_ms if t is not None]
+    nbytes, ops = _lm_step_bytes(model, prof["positions"],
+                                 scfg.max_batch)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / 989e12) * 1e3
+    busy = 100 * prof["busy"] / prof["wall"]
+    c.update(requests=len(done), tokens=toks_out, wall_s=wall,
+             tokens_per_s=toks_out / wall,
+             prefill_ms=sorted(pre_ms), decode_ticks=len(tick_ms),
+             decode_ms_median=float(np.median(ticks)),
+             decode_ms_min=min(ticks), decode_ms_max=max(ticks),
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             profiled_step=dict(wall_ms=prof["wall"], busy_ms=prof["busy"],
+                                busy_pct=busy, device_activities=prof[
+                                    "events"], top=prof["device"],
+                                positions=prof["positions"]),
+             step_bytes=nbytes, step_ops=ops, step_bound_ms=bound_ms,
+             step_bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+             ops / 989e12 else "operations")
+    out["12c"] = c
+    print(f"[lm] 12c served {len(done)} requests (prompts "
+          f"{min(lens)}-{max(lens)} tokens) / {toks_out} tokens in "
+          f"{wall:.2f} s: {toks_out / wall:.1f} tok/s; {len(tick_ms)} "
+          f"decode ticks, median {np.median(ticks):.2f} ms (min "
+          f"{min(ticks):.2f}, max {max(ticks):.2f}); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print("[lm] 12c prefill ms by prompt length: " + ", ".join(
+        f"{n}: {ms:.1f}" for n, ms in sorted(pre_ms)))
+    print(f"[lm] 12c decode step {LM_PROFILE_STEP} under the profiler: "
+          f"wall {prof['wall']:.2f} ms, device busy {prof['busy']:.2f} ms "
+          f"({busy:.1f}%), {prof['events']} device activities; its "
+          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s = {bound_ms:.3f} ms bound "
+          f"(by {c['step_bound_by']}); median tick {np.median(ticks):.2f} "
+          f"ms = {np.median(ticks) / bound_ms:.2f}x the bound")
+    print("[lm] 12c device: " + "; ".join(
+        f"{k[:60]} {ms:.3f} ms" for k, ms in prof["device"]))
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2347,6 +2683,13 @@ def main() -> int:
               f"p50 {row['bool_p50']:.2f} / p95 {row['bool_p95']:.2f} ms; "
               f"ranked {row['rank_qps']:.1f} q/s")
     print(f"[mesh] phase 11 in {time.perf_counter() - t0:.1f} s")
+
+    # 12. lm: the LM serving tier, yi-6b at full width and depth
+    t0 = time.perf_counter()
+    lm = _lm(args.seed, torch.device("cuda", 0))
+    lm["s"] = time.perf_counter() - t0
+    print(f"[lm] phase 12 in {lm['s']:.1f} s")
+    print(json.dumps({"lm": lm}))
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

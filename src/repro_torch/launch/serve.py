@@ -1,6 +1,13 @@
-"""Serving launcher of the port: the ``queries`` tier.
+"""Serving launcher of the port: both serving tiers behind one CLI.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --tier queries --engine cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --tier lm --arch yi-6b
+
+``--tier lm`` serves ``--n`` requests (prompts of 3-11 random tokens) by
+continuous-batching decode (``serve.engine.DecodeEngine``: 4 lanes, a
+64-slot cache, 16 new tokens each) on the arch's smoke config with seeded
+random weights, on ``--device``.  The rest of this docstring is the
+``queries`` tier.
 
 Builds a Zipf synthetic collection (``index/corpus.py::zipf_corpus``),
 compresses it with the chosen builder (``--builder``: ``host`` Re-Pair by
@@ -369,15 +376,50 @@ def serve_queries(n_queries: int, engine: str = "cuda", device="cuda",
               "rebuild-from-scratch (boolean + top-k, exact scores)")
 
 
+def serve_lm(arch_name: str, n_requests: int, device="cuda",
+             seed: int = 0) -> list[list[int]]:
+    """``--tier lm``: continuous-batching decode of ``n_requests`` random
+    prompts on ``arch_name``'s smoke config (weights from a generator
+    seeded with ``seed`` on ``device``).  Returns the finished token
+    streams."""
+    import torch
+    from ..configs import get_arch
+    from ..kernels import resolve_device
+    from ..models.transformer import init_params
+    from ..serve import DecodeEngine, ServeConfig
+
+    dev = resolve_device(device)
+    cfg = get_arch(arch_name).smoke_config
+    model = init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    eng = DecodeEngine(model, ServeConfig(max_batch=4, s_cache=64,
+                                          max_new_tokens=16), device=dev)
+    rng = np.random.default_rng(seed)
+    for _ in range(n_requests):
+        plen = int(rng.integers(3, 12))
+        eng.submit(rng.integers(1, cfg.vocab, plen).astype(np.int32))
+    t0 = time.perf_counter()
+    outs = eng.run_until_drained()
+    dt = time.perf_counter() - t0
+    toks = sum(len(o) for o in outs)
+    print(f"[{arch_name} on {dev}] served {len(outs)} requests / {toks} "
+          f"tokens in {dt:.2f}s ({toks/dt:.0f} tok/s, continuous batching "
+          f"over 4 lanes)")
+    return outs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tier", choices=("queries",), default="queries")
+    ap.add_argument("--tier", choices=("queries", "lm"), default="queries")
+    ap.add_argument("--arch", default="yi-6b",
+                    help="--tier lm: the architecture whose smoke config "
+                         "is served (repro_torch.configs.list_archs())")
     ap.add_argument("--engine", choices=("host", "torch", "cuda"),
                     default="cuda")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu, which runs the kernels' "
                          "plain PyTorch versions")
-    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--n", type=int, default=256,
+                    help="queries (--tier queries) or requests (--tier lm)")
     ap.add_argument("--query", default=None,
                     help="boolean query string to plan + execute, e.g. "
                          "'(12 AND 40) OR NOT 7'")
@@ -396,7 +438,8 @@ def main() -> None:
     ap.add_argument("--vocab", type=int, default=4000,
                     help="corpus vocabulary size")
     ap.add_argument("--seed", type=int, default=0,
-                    help="corpus and workload seed")
+                    help="corpus and workload seed (--tier lm: weights and "
+                         "prompts)")
     ap.add_argument("--codec", default=None,
                     choices=("repair", "ef", "bitmap", "adaptive"),
                     help="per-list codec tier: force one codec or "
@@ -429,6 +472,9 @@ def main() -> None:
                          "oracle-verified boolean + top-k queries "
                          "(0 = skip)")
     args = ap.parse_args()
+    if args.tier == "lm":
+        serve_lm(args.arch, args.n, device=args.device, seed=args.seed)
+        return
     serve_queries(args.n, args.engine, device=args.device, query=args.query,
                   concurrency=args.concurrency, topk=args.topk,
                   batch_window=args.batch_window, num_docs=args.num_docs,

@@ -69,7 +69,13 @@ installed:
   ``QueryServer(engine="cuda")`` on the card, flushed and compacted by the
   cuda builder (K4), a segment of one document among them (an empty
   stream) — every answer == the rebuild-from-scratch oracle, and K1 and
-  K2 launched by the segment engines.
+  K2 launched by the segment engines;
+* the LM tier: each of the five LM archs' smoke configs served by
+  ``DecodeEngine`` on the card against the same parameters with
+  ``device="cpu"``, teacher-forced on the CPU run's tokens (same inputs at
+  every prefill and step, logits within 2e-2, the same finished
+  requests), and on the card ``prefill`` == ``forward`` at the last
+  position.
 """
 
 import numpy as np
@@ -1184,3 +1190,51 @@ def test_one_shot_surface_on_card_matches_cpu(card, clists, cres):
         np.testing.assert_array_equal(
             K1.list_intersect(index, ids, rows),
             K1.list_intersect(index, ids, rows, device="cpu"))
+
+
+# -- the LM tier ----------------------------------------------------------------
+
+LM_ARCHS = ["qwen3-32b", "yi-6b", "minicpm3-4b", "granite-moe-3b-a800m",
+            "phi3.5-moe-42b-a6.6b"]
+
+
+def _lm_recorded():
+    """``chip_smoke.lm_recorded``: the engine with its prefills and steps
+    recorded (and, given another run's records, teacher-forced)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.lm_recorded
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_decode_engine_on_card_matches_cpu(card, name):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeConfig
+    cfg = get_arch(name).smoke_config
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(card)
+    assert gpu.device == card
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab, int(rng.integers(3, 12)))
+               for _ in range(6)]
+    scfg = ServeConfig(max_batch=3, s_cache=32, max_new_tokens=9)
+    lm_recorded = _lm_recorded()
+    done_c, ev_c = lm_recorded(cpu, scfg, prompts, "cpu")
+    done_g, ev_g = lm_recorded(gpu, scfg, prompts, card, forced=ev_c)
+    assert done_g == done_c and len(done_c) == len(prompts)
+    assert len(ev_g) == len(ev_c)
+    for (ig, lg, xg), (ic, lc, xc) in zip(ev_g, ev_c):
+        for a, b in zip(ig, ic):
+            assert torch.equal(a.cpu(), b.cpu())
+        np.testing.assert_array_equal(lg, lc)
+        torch.testing.assert_close(xg, xc, rtol=2e-2, atol=2e-2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24))).to(card)
+    full, _ = gpu(toks)
+    last, cache = gpu.prefill(toks)
+    assert all(v.device == card for v in cache.values())
+    torch.testing.assert_close(last, full[:, -1], rtol=2e-2, atol=2e-2)

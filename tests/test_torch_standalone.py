@@ -76,7 +76,13 @@ def test_imports_without_jax_or_repro():
             "repro_torch.kernels.bitmap_and.ops", "repro_torch.index.hybrid",
             "repro_torch.index.positional",
             "repro_torch.launch.quickstart", "repro_torch.distributed",
-            "repro_torch.distributed.sharding"} <= mods
+            "repro_torch.distributed.sharding", "repro_torch.models",
+            "repro_torch.models.layers", "repro_torch.models.moe",
+            "repro_torch.models.transformer", "repro_torch.models.convert",
+            "repro_torch.models.gnn", "repro_torch.models.recsys",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.yi_6b", "repro_torch.configs.repair_ir",
+            "repro_torch.launch.specs", "repro_torch.serve.engine"} <= mods
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -231,6 +237,33 @@ def test_wrappers_refuse_other_devices(tiny_res):
     for fn in (K8.bitmap_and, K8.bitmap_and_count):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(words, words)
+
+
+def test_lm_entry_points_raise_without_card(no_card):
+    """The LM tier runs on the card unless asked otherwise: the model, its
+    initializer, the weight carrier, the engine and the launcher raise
+    without one, and serve with ``device="cpu"``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.convert import tensor_from_numpy
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.serve import DecodeEngine, ServeConfig
+    cfg = get_arch("yi-6b").smoke_config
+    with pytest.raises(RuntimeError, match="is_available"):
+        Transformer(cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="is_available"):
+        tensor_from_numpy(np.zeros(3, np.float32))
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        DecodeEngine(model, ServeConfig(max_batch=2, s_cache=16))
+    with pytest.raises(RuntimeError, match="is_available"):
+        launch.serve_lm("yi-6b", 2)
+    eng = DecodeEngine(model, ServeConfig(max_batch=2, s_cache=16,
+                                          max_new_tokens=3), device="cpu")
+    eng.submit([3, 7, 11])
+    assert [len(o) for o in eng.run_until_drained()] == [3]
+    assert len(launch.serve_lm("minicpm3-4b", 3, device="cpu")) == 3
 
 
 def test_quickstart_raises_without_card(no_card):
