@@ -154,8 +154,34 @@ exits non-zero:
    prompt length, decode ms per tick, ``max_memory_allocated``, the
    device busy share of a profiled decode step, and that step's bytes
    against the HBM bound, printed on the ``lm`` JSON line.
+13. train — the training tier (``repro_torch.train``: AdamW as plain
+   tensor code, checkpoints in ``repro``'s format, the ``Trainer``; no
+   kernel of the port runs there, as no Pallas kernel runs in ``repro``'s
+   training).  13a: the five LM archs' smoke configs, 3 ``Trainer`` steps
+   on ``cuda:0`` against the same parameters on the CPU (a seeded CPU
+   generator, then ``.to``) on the same pipeline: loss and global grad
+   norm of each step within 2e-2 relative, parameters after the last step
+   within 2e-2 × the leaf's max |p| (an element whose last gradients
+   differ in sign, both inside the gradients' tolerance, within that plus
+   2 · lr: Adam's first steps are sign-like).  13b: yi-6b at full width
+   cut to 2 layers (870,338,560 parameters): one step at seq 128, batch 1,
+   card against CPU under 13a's gates and its gradients within 2e-2 × the
+   leaf's max |g|; then 6 timed steps on the card at ``train_4k``'s
+   sequence length 4096, batch 1: step ms, tokens/s,
+   ``max_memory_allocated``, the device busy share of one profiled step
+   and the model FLOPs per step (formula printed) against the dense bf16
+   peak.  13c: crash-exact resume on the card under
+   ``torch.use_deterministic_algorithms(True)``: yi-6b's smoke config 6
+   steps straight against 3 steps, a save, a fresh ``Trainer`` that
+   restores, 3 more — losses and every parameter and optimizer tensor
+   equal bit for bit.  13d: ``launch/train.py --smoke --arch yi-6b
+   --steps 20`` on the card; the trained model's loss on the first step's
+   batch must be below that step's.  13e: ``launch/web_graph.py`` on the
+   card prints what it prints on the CPU, and GCN logits on the same
+   parameters agree within 1e-5.  Printed on the ``train`` JSON line.
 
-The last lines are the ``lm`` JSON line, the ``kernels`` JSON line (per kernel: launches on its
+The last lines are the ``lm`` JSON line, the ``train`` JSON line, the
+``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
 the cuda build, K5-K8 in phase 8 — times and bounds at its main launch,
 ``path_ms``, its device time summed over the launches of its path, with
@@ -172,6 +198,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -218,6 +245,15 @@ LM_TOL = 2e-2
 LM_REQUESTS, LM_PROMPTS = 16, (64, 512)
 LM_SERVE = dict(max_batch=8, s_cache=2048, max_new_tokens=32)
 LM_PROFILE_STEP = 8
+#: phase 13: the tolerance of card against CPU (loss, grad norm, and
+#: parameters × the leaf's max |p|), 13a's steps, the optimizer of 13a and
+#: 13b, and 13b's timed steps at train_4k's sequence length; the H100 SXM
+#: dense bf16 peak (NVIDIA data sheet) for the model-FLOPs share
+TRAIN_TOL = 2e-2
+TRAIN_STEPS = 3
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+TRAIN_SEQ, TRAIN_TIMED = 4096, 6
+H100_BF16_FLOPS = 989e12
 
 
 def _nvidia_smi() -> str:
@@ -2217,7 +2253,435 @@ def _lm(seed: int, card) -> dict:
     return out
 
 
+def _drive(tr, steps: int) -> list[dict]:
+    """``steps`` steps of ``tr`` as ``Trainer.run`` takes them (the next
+    batch, ``step_fn``, a synchronise of the device, the host clock around
+    both), without its checkpoints: at full width a save writes the whole
+    state to disk (10.4 GB at 13b's size).  Returns the history."""
+    import torch
+    hist = []
+    for step in range(steps):
+        batch = {k: torch.from_numpy(v).to(tr.device)
+                 for k, v in tr.pipeline.next_batch().items()}
+        t0 = time.perf_counter()
+        tr.params, tr.opt_state, metrics = tr.step_fn(tr.params,
+                                                      tr.opt_state, batch)
+        if tr.device.type == "cuda":
+            torch.cuda.synchronize(tr.device)
+        hist.append({"step": step, "time_s": time.perf_counter() - t0,
+                     **{k: float(v) for k, v in metrics.items()}})
+    return hist
+
+
+def _train_pair(cpu, card, data: dict, steps: int, ocfg: dict,
+                run: bool = True) -> dict:
+    """``steps`` ``Trainer`` steps of the model ``cpu`` on the CPU and of
+    its copy ``card`` on the card, on the same pipeline (through
+    ``Trainer.run``, or ``_drive`` when ``run`` is False).  Gates: the loss
+    and the global grad norm of each step within ``TRAIN_TOL`` relative;
+    for one step from the same parameters, its gradients within
+    ``TRAIN_TOL`` × the CPU leaf's max |g| (after more, the last step's are
+    reported); every parameter after it within ``TRAIN_TOL`` × the CPU
+    leaf's max |p|, but for an element whose two last gradients differ in
+    sign, both within ``TRAIN_TOL`` × max |g| of zero (inside the
+    gradients' own tolerance): Adam's sign-like steps then go opposite
+    ways by up to ``lr`` each, and the element is held within that
+    tolerance plus ``2 · lr`` (their count and largest |g| are returned).
+    Returns the largest relative errors."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.data import (DataConfig, ShardedTokenPipeline,
+                                  SyntheticLMDataset)
+    from repro_torch.models.convert import lm_params_to_numpy
+    from repro_torch.train import loop
+    from repro_torch.train.loop import Trainer, TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.tree import Stacked, leaves_with_paths, parts
+    hists, grads = [], []
+    update = loop.adamw_update
+
+    def snapshot(cfg, params, g, state):
+        last.clear()
+        for path, leaf in leaves_with_paths(params):
+            ts = [p.grad if p.grad is not None else torch.zeros_like(p)
+                  for p in parts(leaf)]
+            t = torch.stack(ts) if isinstance(leaf, Stacked) else ts[0]
+            last[path] = t.float().cpu().numpy()
+        return update(cfg, params, g, state)
+
+    for model in (cpu, card):
+        last: dict = {}
+        loop.adamw_update = snapshot
+        try:
+            with tempfile.TemporaryDirectory(prefix="train_") as d, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                tr = Trainer(_lm_train_loss, model, ShardedTokenPipeline(
+                    SyntheticLMDataset(DataConfig(**data))),
+                    opt_cfg=AdamWConfig(**ocfg), train_cfg=TrainConfig(
+                        total_steps=steps, ckpt_every=10 ** 9, ckpt_dir=d,
+                        log_every=10 ** 9))
+                hists.append(tr.run(resume=False) if run
+                             else _drive(tr, steps))
+                del tr
+        finally:
+            loop.adamw_update = update
+        grads.append(last)
+    row = dict(steps=steps, loss_cpu=[h["loss"] for h in hists[0]],
+               loss_card=[h["loss"] for h in hists[1]])
+    for key in ("loss", "grad_norm"):
+        errs = [abs(g[key] - c[key]) / abs(c[key])
+                for c, g in zip(*hists)]
+        if not all(np.isfinite(g[key]) for g in hists[1]) \
+                or max(errs) > TRAIN_TOL:
+            raise SystemExit(f"[train] card {key} differs from the CPU's by "
+                             f"{max(errs)} relative > {TRAIN_TOL}")
+        row[f"{key}_rel_err"] = max(errs)
+    lr = max(h["lr"] for h in hists[0])
+    worst = dict(grad=0.0, param=0.0, flipped=0, flipped_max_g=0.0,
+                 elements=0)
+    on_card = dict(leaves_with_paths(lm_params_to_numpy(card)))
+    for path, a in leaves_with_paths(lm_params_to_numpy(cpu)):
+        b, gc, gg = on_card[path], grads[0][path], grads[1][path]
+        gerr = float(np.abs(gg - gc).max()) / max(float(np.abs(gc).max()),
+                                                  1e-30)
+        if steps == 1 and gerr > TRAIN_TOL:
+            raise SystemExit(f"[train] card gradient {path} differs from "
+                             f"the CPU's by {gerr} x its max |g| > "
+                             f"{TRAIN_TOL}")
+        tol = TRAIN_TOL * max(float(np.abs(a).max()), 1e-30)
+        g_tol = TRAIN_TOL * float(np.abs(gc).max())
+        diff = np.abs(a - b)
+        beyond = diff > tol
+        flipped = beyond & (np.sign(gc) != np.sign(gg)) \
+            & (np.abs(gc) <= g_tol) & (np.abs(gg) <= g_tol) \
+            & (diff <= tol + 2 * lr)
+        if not np.isfinite(b).all() or (beyond & ~flipped).any():
+            raise SystemExit(f"[train] card parameter {path} differs from "
+                             f"the CPU's by {float(diff.max())} (tol {tol}; "
+                             f"tol + 2 lr where the gradients differ in "
+                             f"sign within {g_tol} of zero)")
+        worst["grad"] = max(worst["grad"], gerr)
+        worst["param"] = max(worst["param"], float(diff.max()) * TRAIN_TOL
+                             / tol)
+        worst["flipped"] += int(flipped.sum())
+        worst["elements"] += int(diff.size)
+        if flipped.any():
+            worst["flipped_max_g"] = max(
+                worst["flipped_max_g"], float(np.abs(gc[flipped]).max()),
+                float(np.abs(gg[flipped]).max()))
+    row.update(grad_rel_err=worst["grad"], param_rel_err=worst["param"],
+               sign_flips=worst["flipped"], elements=worst["elements"],
+               sign_flip_max_abs_grad=worst["flipped_max_g"], lr=lr)
+    return row
+
+
+def _step_parts(tr, batch) -> dict:
+    """One more step of ``tr`` on ``batch``, taken apart as the train step
+    takes it — the loss (forward), ``backward`` (each layer recomputed),
+    ``adamw_update`` — with a synchronise after each: host ms of each part;
+    and the two float32 products of the logits' backward
+    (``_MatmulF32.backward``) alone, on the step's shapes, timed with CUDA
+    events over 3 calls."""
+    import torch
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import adamw_update
+    ms, marks = {}, [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        ms[name] = (marks[-1] - marks[-2]) * 1e3
+
+    torch.cuda.synchronize()
+    marks[0] = time.perf_counter()
+    loss = _lm_train_loss(tr.params, batch)
+    mark("forward")
+    loss.backward()
+    mark("backward")
+    tr.params, tr.opt_state, _ = adamw_update(tr.opt_cfg, tr.params, None,
+                                              tr.opt_state)
+    mark("adamw_update")
+    loop._clear_grads(tr.params)
+    ms["loss"] = float(loss.detach())
+    model = tr.params
+    x = torch.randn((batch["tokens"].numel(), model.cfg.d_model),
+                    device=model.device).to(torch.bfloat16)
+    g = torch.randn((x.shape[0], model.cfg.padded_vocab),
+                    device=model.device)
+    w = model.unembed.detach()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        torch.mm(g, w.float().t()).to(x.dtype)
+        torch.mm(x.float().t(), g).to(w.dtype)
+    stop.record()
+    torch.cuda.synchronize()
+    ms["logits_backward_f32_products"] = start.elapsed_time(stop) / 3
+    return ms
+
+
+def _lm_train_loss(model, batch):
+    return model.lm_loss(batch["tokens"], batch["targets"])
+
+
+def _train_flops(cfg, n_params: int, tokens: int, seq: int) -> tuple:
+    """Model FLOPs of one training step: 6 × params × tokens, plus the
+    attention's score and value products, 12 × layers × heads × head_dim
+    × seq per token (forward and backward, causal masking not
+    discounted).  Returns (flops, the formula as a string)."""
+    att = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq
+    return (6 * n_params * tokens + att * tokens,
+            f"6 * {n_params} * {tokens} + 12 * {cfg.n_layers} * "
+            f"{cfg.n_heads} * {cfg.head_dim} * {seq} * {tokens}")
+
+
+def _train(seed: int, card) -> dict:
+    """Phase 13: the training tier on ``card``.  Returns the ``train``
+    line's object."""
+    import copy
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import (DataConfig, ShardedTokenPipeline,
+                                  SyntheticLMDataset)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch import web_graph
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.loop import Trainer, TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.tree import leaves, parts
+    out = {}
+
+    # 13a: the five smoke configs, TRAIN_STEPS steps, card against CPU
+    t0 = time.perf_counter()
+    out["13a"] = {}
+    for name in LM_ARCHS:
+        cfg = get_arch(name).smoke_config
+        cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        gpu = copy.deepcopy(cpu).to(card)
+        row = _train_pair(cpu, gpu, dict(seq_len=32, global_batch=8,
+                                         vocab=cfg.vocab, seed=seed),
+                          TRAIN_STEPS, TRAIN_OPT)
+        out["13a"][name] = row
+        print(f"[train] 13a {name}: {TRAIN_STEPS} Trainer steps, card vs "
+              f"cpu: loss {row['loss_cpu'][0]:.4f} -> "
+              f"{row['loss_cpu'][-1]:.4f}, max rel err loss "
+              f"{row['loss_rel_err']:.2e}, grad norm "
+              f"{row['grad_norm_rel_err']:.2e}, grads "
+              f"{row['grad_rel_err']:.2e} x max|g|, params "
+              f"{row['param_rel_err']:.2e} x max|p| (tol {TRAIN_TOL}; "
+              f"{row['sign_flips']} of {row['elements']} elements past it, "
+              f"each with gradients of other signs, |g| <= "
+              f"{row['sign_flip_max_abs_grad']:.1e}, within tol + 2 lr)")
+    out["13a_s"] = time.perf_counter() - t0
+
+    # 13b: yi-6b at full width, 2 layers: one step card vs CPU at seq 128,
+    # then timed steps on the card at train_4k's sequence length, batch 1
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("yi-6b").config, n_layers=2)
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    n_params = sum(p.numel() for p in cpu.parameters())
+    assert n_params == cfg.param_count()
+    row = _train_pair(cpu, gpu, dict(seq_len=128, global_batch=1,
+                                     vocab=cfg.vocab, seed=seed), 1,
+                      TRAIN_OPT, run=False)
+    del cpu
+    print(f"[train] 13b yi-6b full width, 2 layers ({n_params:,} params): "
+          f"one step at seq 128 card vs cpu: loss {row['loss_cpu'][0]:.4f}, "
+          f"rel err loss {row['loss_rel_err']:.2e}, grad norm "
+          f"{row['grad_norm_rel_err']:.2e}, grads {row['grad_rel_err']:.2e} "
+          f"x max|g|, params {row['param_rel_err']:.2e} x max|p| (tol "
+          f"{TRAIN_TOL}; {row['sign_flips']} of {row['elements']} elements "
+          f"past it, each with gradients of other signs, |g| <= "
+          f"{row['sign_flip_max_abs_grad']:.1e}, within tol + 2 lr); "
+          f"{time.perf_counter() - t0:.1f} s")
+    b = dict(params=n_params, layers=cfg.n_layers, check=row,
+             check_s=time.perf_counter() - t0, seq=TRAIN_SEQ, batch=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_") as d:
+        pipe = ShardedTokenPipeline(SyntheticLMDataset(DataConfig(
+            seq_len=TRAIN_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed)))
+        tr = Trainer(_lm_train_loss, gpu, pipe, opt_cfg=AdamWConfig(
+            **TRAIN_OPT), train_cfg=TrainConfig(
+                total_steps=TRAIN_TIMED, ckpt_dir=d))
+        hist = _drive(tr, TRAIN_TIMED)
+    step_ms = [h["time_s"] * 1e3 for h in hist]
+    mem = torch.cuda.max_memory_allocated()
+    state = sum(p.numel() * p.element_size() * 2 for leaf in leaves(gpu)
+                for p in parts(leaf)) + sum(
+        t.numel() * 4 for t in leaves(tr.opt_state.mu)) * 2
+    batch = {k: torch.from_numpy(v).to(card)
+             for k, v in pipe.next_batch().items()}
+    res = []
+    prof = _lm_busy(lambda: res.append(tr.step_fn(tr.params, tr.opt_state,
+                                                  batch)))
+    loss_prof = float(res[0][2]["loss"])
+    parts_ms = _step_parts(tr, batch)
+    losses = [h["loss"] for h in hist] + [loss_prof, parts_ms.pop("loss")]
+    if not all(np.isfinite(x) for x in losses):
+        raise SystemExit(f"[train] 13b non-finite loss: {losses}")
+    flops, formula = _train_flops(cfg, n_params, TRAIN_SEQ, TRAIN_SEQ)
+    med = float(np.median(step_ms))
+    busy = 100 * prof["busy"] / prof["wall"]
+    b.update(step_ms=step_ms, step_ms_median=med,
+             tokens_per_s=TRAIN_SEQ / (med / 1e3), losses=losses,
+             max_memory_allocated=mem, state_bytes=state,
+             profiled_step=dict(wall_ms=prof["wall"], busy_ms=prof["busy"],
+                                busy_pct=busy, device_activities=prof[
+                                    "events"], top=prof["device"]),
+             step_parts_ms=parts_ms, model_flops=flops,
+             model_flops_formula=formula,
+             model_tflops_per_s=flops / (med / 1e3) / 1e12,
+             mfu_pct=100 * flops / (med / 1e3) / H100_BF16_FLOPS,
+             timed_s=time.perf_counter() - t1,
+             reduced=["2 of 32 layers (the whole model's state, 12 bytes "
+                      "a parameter, is 72.7 GB of the card's 80)",
+                      "train_4k's global batch 256 cut to 1"])
+    out["13b"] = b
+    print(f"[train] 13b {TRAIN_TIMED} steps on the card at seq {TRAIN_SEQ}, "
+          f"batch 1 (train_4k cut: 2 of 32 layers, batch 1 of 256): step ms "
+          + ", ".join(f"{x:.1f}" for x in step_ms) + f"; median {med:.1f} "
+          f"ms = {TRAIN_SEQ / (med / 1e3):.0f} tokens/s; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"[train] 13b max_memory_allocated {mem / 1e9:.2f} GB (state: "
+          f"bf16 weights and grads, f32 mu and nu, {state / 1e9:.2f} GB); "
+          f"model FLOPs per step {formula} = {flops / 1e12:.2f} TFLOP -> "
+          f"{b['model_tflops_per_s']:.1f} TFLOP/s at the median step, "
+          f"{b['mfu_pct']:.2f}% of the H100's 989 TFLOP/s dense bf16 peak")
+    print("[train] 13b one more step in parts (a synchronise after each; "
+          "host ms): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                   parts_ms.items()))
+    print(f"[train] 13b one step under the profiler: wall "
+          f"{prof['wall']:.1f} ms, device busy {prof['busy']:.1f} ms "
+          f"({busy:.1f}%), {prof['events']} device activities; "
+          + "; ".join(f"{k[:60]} {ms:.2f} ms" for k, ms in prof["device"]))
+    del tr, gpu, res, batch
+    torch.cuda.empty_cache()
+    out["13b_s"] = time.perf_counter() - t0
+
+    # 13c: crash-exact resume on the card, deterministic algorithms on
+    t0 = time.perf_counter()
+    cfg = get_arch("yi-6b").smoke_config
+    data = dict(seq_len=32, global_batch=8, vocab=cfg.vocab, seed=seed)
+
+    def trainer(d, init_seed):
+        model = init_params(cfg, torch.Generator(card).manual_seed(init_seed),
+                            card)
+        return Trainer(_lm_train_loss, model, ShardedTokenPipeline(
+            SyntheticLMDataset(DataConfig(**data))), opt_cfg=AdamWConfig(
+                lr=1e-3, warmup_steps=2, total_steps=6),
+            train_cfg=TrainConfig(total_steps=6, ckpt_every=10 ** 9,
+                                  ckpt_dir=d, log_every=10 ** 9))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="train_") as d, \
+                contextlib.redirect_stdout(io.StringIO()):
+            straight = trainer(f"{d}/a", seed)
+            h_straight = straight.run()
+            first = trainer(f"{d}/b", seed)
+            h_first = first.run(steps=3)
+            saved = first.ckpt.steps()
+            resumed = trainer(f"{d}/b", seed + 1)
+            h_resumed = resumed.run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_a = [h["loss"] for h in h_straight]
+    loss_b = [h["loss"] for h in h_first + h_resumed]
+    same = [torch.equal(x, y) for x, y in zip(
+        [p for leaf in leaves(straight._state()) for p in parts(leaf)],
+        [p for leaf in leaves(resumed._state()) for p in parts(leaf)])]
+    if saved != [3] or [h["step"] for h in h_resumed] != [3, 4, 5] \
+            or loss_a != loss_b or not all(same):
+        raise SystemExit(f"[train] 13c resume is not exact: checkpoints "
+                         f"{saved}, losses {loss_a} vs {loss_b}, "
+                         f"{same.count(False)} of {len(same)} state tensors "
+                         f"differ")
+    out["13c"] = dict(losses=loss_a, state_tensors=len(same),
+                      s=time.perf_counter() - t0)
+    print(f"[train] 13c yi-6b smoke: 6 steps straight == 3 steps, save, "
+          f"a fresh Trainer restores, 3 more steps: losses equal bit for "
+          f"bit ({loss_a[0]:.6f} -> {loss_a[-1]:.6f}), all {len(same)} "
+          f"parameter and optimizer tensors equal, under "
+          f"torch.use_deterministic_algorithms(True)")
+
+    # 13d: launch/train.py --smoke --arch yi-6b --steps 20 on the card.
+    # Each step's loss is that of another batch: over 20 steps at lr 1e-3
+    # the batches' spread outweighs the gain (the reference's own smoke
+    # ends above its start), so the gate compares like with like: the
+    # trained model's loss on the first step's batch against that step's
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_") as d:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tr = launch_train.main(["--smoke", "--arch", "yi-6b",
+                                    "--steps", "20", "--ckpt-dir", d])
+    hist, lines = tr.history, buf.getvalue().splitlines()
+    first = {k: torch.from_numpy(v).to(card) for k, v in
+             tr.pipeline.dataset.batch_at(0).items()}
+    with torch.no_grad():
+        after = float(tr.params.lm_loss(first["tokens"], first["targets"]))
+    if len(hist) != 20 or tr.device != card or not after < hist[0]["loss"]:
+        raise SystemExit(f"[train] 13d the smoke run's loss on its first "
+                         f"batch did not fall: {hist[0]['loss']} -> {after} "
+                         f"({lines[-1]})")
+    out["13d"] = dict(first=hist[0]["loss"], last=hist[-1]["loss"],
+                      first_batch_after=after,
+                      step_ms_median=float(np.median(
+                          [h["time_s"] * 1e3 for h in hist[1:]])),
+                      s=time.perf_counter() - t0)
+    print(f"[train] 13d launch/train.py --smoke --arch yi-6b --steps 20 on "
+          f"the card: {lines[0]}; {lines[-1]}; the first step's batch: loss "
+          f"{hist[0]['loss']:.4f} before, {after:.4f} after the 20 steps; "
+          f"median step {out['13d']['step_ms_median']:.2f} ms")
+    del tr
+
+    # 13e: the web_graph flow on the card, against the CPU
+    t0 = time.perf_counter()
+    runs = {}
+    for dev in ("cpu", card):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            web_graph.main(device=dev)
+        runs[str(dev)] = buf.getvalue().splitlines()
+    lines_c, lines_g = runs["cpu"], runs[str(card)]
+    if lines_g != lines_c or lines_g[-1] != "web_graph OK":
+        raise SystemExit(f"[train] 13e the web_graph flow printed other "
+                         f"lines on the card: {lines_g} vs {lines_c}")
+    adj = web_graph.make_web_graph(600)
+    src = np.repeat(np.arange(600), [len(a) for a in adj])
+    dst = np.concatenate(adj)
+    from repro_torch.models import gnn
+    params = gnn.init_params(web_graph.GCN, torch.Generator().manual_seed(
+        seed))
+    feats = np.random.default_rng(seed).normal(
+        size=(600, web_graph.GCN.d_feat)).astype(np.float32)
+    want = web_graph.gcn_logits(params, feats, src, dst, "cpu")
+    got = web_graph.gcn_logits({k: [t.to(card) for t in v]
+                                for k, v in params.items()}, feats, src,
+                               dst, card).cpu()
+    gerr = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+        raise SystemExit(f"[train] 13e GCN logits on the card differ from "
+                         f"the CPU's by {gerr}")
+    out["13e"] = dict(lines=lines_g[:3], gcn_max_abs_err=gerr,
+                      s=time.perf_counter() - t0)
+    print(f"[train] 13e launch/web_graph.py on the card == on the CPU: "
+          + "; ".join(lines_g[:3]) + f"; GCN logits card vs cpu on the "
+          f"same parameters max diff {gerr:.2e} (tol 1e-5)")
+    return out
+
+
 def main() -> int:
+    # phase 13c runs under torch.use_deterministic_algorithms, which needs
+    # cuBLAS's fixed workspace from the first handle on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--num-docs", type=int, default=20000)
@@ -2690,6 +3154,13 @@ def main() -> int:
     lm["s"] = time.perf_counter() - t0
     print(f"[lm] phase 12 in {lm['s']:.1f} s")
     print(json.dumps({"lm": lm}))
+
+    # 13. train: the training tier, yi-6b at full width
+    t0 = time.perf_counter()
+    train = _train(args.seed, torch.device("cuda", 0))
+    train["s"] = time.perf_counter() - t0
+    print(f"[train] phase 13 in {train['s']:.1f} s")
+    print(json.dumps({"train": train}))
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

@@ -1,5 +1,13 @@
-"""Data feeds of the port: the versioned postings source."""
+"""Data feeds of the port: the LM token pipeline and the versioned
+postings source."""
 
-from .pipeline import PostingsSource
+from .pipeline import (DataConfig, PipelineCursor, PostingsSource,
+                       ShardedTokenPipeline, SyntheticLMDataset)
 
-__all__ = ["PostingsSource"]
+__all__ = [
+    "DataConfig",
+    "ShardedTokenPipeline",
+    "SyntheticLMDataset",
+    "PipelineCursor",
+    "PostingsSource",
+]

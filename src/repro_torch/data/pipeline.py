@@ -1,18 +1,73 @@
-"""Versioned postings feed of the port: ``PostingsSource``.
+"""Deterministic, sharded, resumable data feeds of the port: a copy of
+``repro/data/pipeline.py`` (numpy only).
 
-A copy of ``repro/data/pipeline.py::PostingsSource`` (numpy only; the
-rest of that module, the LM token pipeline, is not ported).  It is the
-versioned postings feed for the construction pipeline:
-``lists_at(version)`` is a pure function of ``(seed, version)``, each
-version extending the collection, so any builder host can recompute
-exactly the snapshot it is asked to compress and a rebuilt index is
-reproducible across machines.  ``QueryServer.rebuild`` consumes it in the
-launcher's refresh loop.
+* the LM token pipeline: ``DataConfig``, ``PipelineCursor``,
+  ``SyntheticLMDataset`` and ``ShardedTokenPipeline``.  Every host pulls
+  only its shard of the global batch; the order is a pure function of
+  ``(seed, step)``, so a restarted host recomputes exactly its stream,
+  the cursor is one integer (``step``) that lives inside the checkpoint,
+  and an elastic rescale changes only ``shard_id / num_shards`` (batches
+  are built globally and sliced per shard).  The batches equal the
+  reference's bit for bit.
+* ``PostingsSource``: the versioned postings feed for the construction
+  pipeline.  ``lists_at(version)`` is a pure function of ``(seed,
+  version)``, each version extending the collection, so any builder host
+  can recompute exactly the snapshot it is asked to compress and a
+  rebuilt index is reproducible across machines.  ``QueryServer.rebuild``
+  consumes it in the launcher's refresh loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seq_len: int
+    global_batch: int
+    vocab: int
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class PipelineCursor:
+    """The full pipeline state: one integer.  Stored in every checkpoint."""
+    step: int = 0
+
+    def to_dict(self) -> dict:
+        return {"step": int(self.step)}
+
+    @staticmethod
+    def from_dict(d: dict) -> "PipelineCursor":
+        return PipelineCursor(step=int(d["step"]))
+
+
+class SyntheticLMDataset:
+    """Deterministic synthetic packed-token stream.
+
+    ``batch_at(step)`` is a pure function: the PRNG is keyed by
+    (seed, step), never by call order, so replays are exact.
+    """
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+
+    def batch_at(self, step: int) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, step]))
+        tokens = rng.integers(
+            0, cfg.vocab, size=(cfg.global_batch, cfg.seq_len + 1),
+            dtype=np.int32)
+        # Inject learnable structure: token t+1 depends on token t for a
+        # slice of positions, so loss actually decreases in examples.
+        dep = (tokens[:, :-1] * 31 + 7) % cfg.vocab
+        mask = rng.random((cfg.global_batch, cfg.seq_len)) < 0.5
+        tokens[:, 1:][mask] = dep[mask]
+        return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
 
 
 class PostingsSource:
@@ -109,3 +164,36 @@ class PostingsSource:
             for t in terms.tolist():
                 inv.setdefault(t, []).append(d)
         return [np.asarray(inv[t], np.int64) for t in sorted(inv)], n
+
+
+class ShardedTokenPipeline:
+    """Per-host view of the global stream + resumable cursor."""
+
+    def __init__(self, dataset: SyntheticLMDataset, shard_id: int = 0,
+                 num_shards: int = 1, cursor: PipelineCursor | None = None):
+        assert 0 <= shard_id < num_shards
+        gb = dataset.cfg.global_batch
+        assert gb % num_shards == 0, (
+            f"global_batch {gb} must divide over {num_shards} shards")
+        self.dataset = dataset
+        self.shard_id = shard_id
+        self.num_shards = num_shards
+        self.cursor = cursor or PipelineCursor()
+
+    @property
+    def local_batch(self) -> int:
+        return self.dataset.cfg.global_batch // self.num_shards
+
+    def next_batch(self) -> dict[str, np.ndarray]:
+        """The shard's slice of the global batch at the cursor; advances."""
+        full = self.dataset.batch_at(self.cursor.step)
+        lo = self.shard_id * self.local_batch
+        hi = lo + self.local_batch
+        self.cursor.step += 1
+        return {k: v[lo:hi] for k, v in full.items()}
+
+    def state_dict(self) -> dict:
+        return self.cursor.to_dict()
+
+    def load_state_dict(self, d: dict) -> None:
+        self.cursor = PipelineCursor.from_dict(d)

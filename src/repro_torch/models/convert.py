@@ -11,7 +11,9 @@ the float32 value came from a bf16 one): the round trip is bit-exact.
   :class:`~repro_torch.models.transformer.Transformer`, one block per
   layer slice;
 * :func:`tree_from_numpy` — any tree of dicts, lists and arrays (GCN's and
-  the recsys models' parameters, which the port keeps as such trees).
+  the recsys models' parameters, which the port keeps as such trees);
+* :func:`lm_params_to_numpy` — back: a model as the reference's stacked
+  tree of numpy arrays.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels import resolve_device
+from ..train.tree import Stacked, tree_map
 from .transformer import LMConfig, Transformer
 
 
@@ -68,3 +71,14 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig,
             blk.ln1.copy_(tensor_from_numpy(layers["ln1"][i], dev))
             blk.ln2.copy_(tensor_from_numpy(layers["ln2"][i], dev))
     return model
+
+
+def lm_params_to_numpy(model: Transformer) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the reference's stacked
+    LM tree (``embed``, ``layers`` with each leaf ``(L, ...)``, ``ln_f``,
+    ``unembed``) as numpy arrays on the host.  A bf16 leaf comes back as
+    float32 (every bf16 value is one), so the round trip through either
+    function is bit-exact; the router stays float32."""
+    return tree_map(lambda leaf: (leaf.stack() if isinstance(leaf, Stacked)
+                                  else leaf.detach()).cpu().float().numpy(),
+                    model)

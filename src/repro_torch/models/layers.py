@@ -52,13 +52,36 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """bf16 (M, K) @ (K, N) -> float32 on the card, with a gradient:
+    ``torch.mm(..., out_dtype=float32)`` has none.  The backward keeps the
+    float32 cotangent, as JAX's transpose of ``preferred_element_type=
+    float32`` does, and returns bf16 gradients: each is the float32
+    product of the cotangent and the other operand, rounded once (what the
+    CPU path's autograd computes through its upcasts)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.mm(g, w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.mm(x.float().t(), g).to(w.dtype)
+        return gx, gw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N), accumulated and returned in float32 (the
     reference's ``preferred_element_type=float32``).  On the card cuBLAS
     reads the bf16 operands as they are and writes float32."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 

@@ -17,6 +17,13 @@ place.
 
 ``long_500k`` uses the sliding-window attention mode (window 4096) with a
 ring KV cache of window size.
+
+The model trains as the reference's does: with gradients on (the training
+tier turns them on), ``forward`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint(...,
+policy=nothing_saveable)`` on its scanned layer), and
+:meth:`Transformer.stacked_leaves` names the parameters as the leaves of
+the reference's stacked tree, which the optimizer and the checkpoints walk.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import resolve_device
 from . import layers as L
@@ -244,8 +252,9 @@ class Transformer(nn.Module):
     """The LM: ``embed`` (V, d), ``blocks``, ``ln_f`` and ``unembed`` (d, V),
     V = ``cfg.padded_vocab`` (the padded columns are live random columns,
     as in the reference).  Parameters are bf16 (the MoE router float32)
-    and do not require grad: this is the serving model, with no optimizer
-    yet.
+    and are made without ``requires_grad``, as serving wants them; the
+    training tier turns it on, and ``forward`` then recomputes each layer
+    in the backward.
 
     ``Transformer(cfg, device=...)`` allocates the parameters, uninitialized,
     on ``device`` — ``"cuda"`` by default, which raises without a card;
@@ -297,6 +306,22 @@ class Transformer(nn.Module):
         self.ln_f = nn.Parameter(empty((d,)), requires_grad=False)
         self.unembed = nn.Parameter(empty((d, V)), requires_grad=False)
 
+    def stacked_leaves(self) -> list[tuple[str, Any]]:
+        """The reference's parameter tree, leaf by leaf in its order
+        (sorted keys): ``(path, tensor)`` for ``embed``, ``ln_f`` and
+        ``unembed``, ``(path, [L block tensors])`` for each ``layers/...``
+        leaf, which the reference holds stacked ``(L, ...)``."""
+        blocks = list(self.blocks)
+        out: list[tuple[str, Any]] = [("embed", self.embed)]
+        for group in ("attn", "ffn"):
+            for k in sorted(getattr(blocks[0], group)):
+                out.append((f"layers/{group}/{k}",
+                            [getattr(b, group)[k] for b in blocks]))
+        out += [("layers/ln1", [b.ln1 for b in blocks]),
+                ("layers/ln2", [b.ln2 for b in blocks]),
+                ("ln_f", self.ln_f), ("unembed", self.unembed)]
+        return out
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -313,7 +338,10 @@ class Transformer(nn.Module):
         positions = torch.arange(S, device=self.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
-            x, a = blk(x, positions)
+            if torch.is_grad_enabled() and blk.ln1.requires_grad:
+                x, a = checkpoint(blk, x, positions, use_reentrant=False)
+            else:
+                x, a = blk(x, positions)
             aux = aux + a
         if self.cfg.bf16_combine:
             h = L.rms_norm(x, self.ln_f)

@@ -75,7 +75,10 @@ installed:
   ``device="cpu"``, teacher-forced on the CPU run's tokens (same inputs at
   every prefill and step, logits within 2e-2, the same finished
   requests), and on the card ``prefill`` == ``forward`` at the last
-  position.
+  position;
+* training: ``matmul_f32``'s gradient on the card (the logits' float32
+  product, through its ``autograd.Function``) against the CPU's, and one
+  train step of each LM smoke arch on the card against the CPU.
 """
 
 import numpy as np
@@ -1238,3 +1241,70 @@ def test_decode_engine_on_card_matches_cpu(card, name):
     last, cache = gpu.prefill(toks)
     assert all(v.device == card for v in cache.values())
     torch.testing.assert_close(last, full[:, -1], rtol=2e-2, atol=2e-2)
+
+
+def test_matmul_f32_grad_on_card_matches_cpu(card):
+    """The logits' product on the card has a gradient: the float32 output
+    and the bf16 gradients of both operands against the CPU's autograd
+    through its upcasts, each gradient within one bf16 ulp (both round the
+    same float32 product once; the sums run in another order)."""
+    from repro_torch.models.layers import matmul_f32
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 24, 96), generator=g).to(torch.bfloat16)
+    w = torch.randn((96, 200), generator=g).mul(0.1).to(torch.bfloat16)
+    up = torch.randn((2, 24, 200), generator=g)
+    outs = {}
+    for dev in ("cpu", card):
+        xd = x.to(dev).detach().requires_grad_(True)
+        wd = w.to(dev).detach().requires_grad_(True)
+        y = matmul_f32(xd, wd)
+        assert y.dtype == torch.float32
+        (y * up.to(dev)).sum().backward()
+        assert xd.grad.dtype == wd.grad.dtype == torch.bfloat16
+        outs[str(dev)] = (y.detach().cpu(), xd.grad.cpu(), wd.grad.cpu(),
+                          type(y.grad_fn.next_functions[0][0]).__name__)
+    yc, gxc, gwc, _ = outs["cpu"]
+    yg, gxg, gwg, fn = outs[str(card)]
+    assert "MatmulF32" in fn
+    torch.testing.assert_close(yg, yc, rtol=1e-5, atol=1e-5)
+    for got, want in ((gxg, gxc), (gwg, gwc)):
+        ulp = torch.from_numpy(np.spacing(
+            want.float().abs().numpy().astype("float32")) * 2 ** 16)
+        assert torch.all((got.float() - want.float()).abs() <= ulp)
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_train_step_on_card_matches_cpu(card, name):
+    """One step of the train step (loss, backward with the layers
+    recomputed, AdamW in place) on the card against the same parameters
+    and batch on the CPU: loss, grad norm and every parameter within 2e-2
+    (parameters × their leaf's max |p|), moments finite."""
+    import copy
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models.convert import lm_params_to_numpy
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.loop import _trainable, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.tree import leaves, leaves_with_paths
+    cfg = get_arch(name).smoke_config
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    batch = SyntheticLMDataset(DataConfig(seq_len=16, global_batch=4,
+                                          vocab=cfg.vocab)).batch_at(0)
+    step = make_train_step(lambda m, b: m.lm_loss(b["tokens"], b["targets"]),
+                           AdamWConfig(lr=1e-3, warmup_steps=0))
+    res = {}
+    for model in (cpu, gpu):
+        dev = model.device
+        _, st, met = step(_trainable(model), init_opt_state(model),
+                          {k: torch.from_numpy(v).to(dev)
+                           for k, v in batch.items()})
+        assert all(torch.isfinite(t).all() for t in leaves(st.mu))
+        res[dev.type] = (float(met["loss"]), float(met["grad_norm"]))
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert abs(a - b) <= 2e-2 * abs(b)
+    on_card = dict(leaves_with_paths(lm_params_to_numpy(gpu)))
+    for path, a in leaves_with_paths(lm_params_to_numpy(cpu)):
+        assert np.abs(a - on_card[path]).max() <= 2e-2 * np.abs(a).max(), \
+            path

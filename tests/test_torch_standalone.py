@@ -1,8 +1,9 @@
 """The port stands alone and runs on the card unless asked otherwise.
 
 * ``repro_torch`` — every submodule — imports in a fresh interpreter where
-  ``jax`` and ``repro`` cannot be imported, and no file of the port (nor
-  ``chip_smoke.py``) has an import statement naming either;
+  ``jax``, ``repro`` and ``ml_dtypes`` (which ships with JAX) cannot be
+  imported, and no file of the port (nor ``chip_smoke.py``) has an import
+  statement naming any of them;
 * the entry points default to ``device="cuda"`` and raise when no card is
   present, unless the caller passes ``device="cpu"``;
 * a kernel wrapper serves a CPU tensor with the plain version and refuses
@@ -34,7 +35,7 @@ from repro_torch.serve import QueryServer
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = Path(repro_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
@@ -42,8 +43,9 @@ def _port_files():
 
 
 def test_imports_without_jax_or_repro():
-    """Import every module of the port with ``jax`` and ``repro`` blocked
-    in ``sys.modules`` (any import of them raises ImportError)."""
+    """Import every module of the port with ``jax``, ``repro`` and
+    ``ml_dtypes`` blocked in ``sys.modules`` (any import of them raises
+    ImportError)."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -82,14 +84,20 @@ def test_imports_without_jax_or_repro():
             "repro_torch.models.gnn", "repro_torch.models.recsys",
             "repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.configs.yi_6b", "repro_torch.configs.repair_ir",
-            "repro_torch.launch.specs", "repro_torch.serve.engine"} <= mods
+            "repro_torch.launch.specs", "repro_torch.serve.engine",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.checkpoint", "repro_torch.train.loop",
+            "repro_torch.train.tree", "repro_torch.launch.train",
+            "repro_torch.launch.train_lm",
+            "repro_torch.launch.web_graph"} <= mods
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_no_import_statement_names_jax_or_repro(path):
     """Source check of every port file and of ``chip_smoke.py``: no
-    ``import``/``from`` of ``jax``, ``jaxlib`` or ``repro`` (relative
-    imports inside the port and ``repro_torch`` itself are fine)."""
+    ``import``/``from`` of ``jax``, ``jaxlib``, ``repro`` or ``ml_dtypes``
+    (relative imports inside the port and ``repro_torch`` itself are
+    fine)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -264,6 +272,31 @@ def test_lm_entry_points_raise_without_card(no_card):
     eng.submit([3, 7, 11])
     assert [len(o) for o in eng.run_until_drained()] == [3]
     assert len(launch.serve_lm("minicpm3-4b", 3, device="cpu")) == 3
+
+
+def test_train_entry_points_raise_without_card(no_card, tmp_path):
+    """The training tier's entry points run on the card unless asked
+    otherwise: ``launch/train.py --smoke``, ``launch/train_lm.py`` and
+    ``launch/web_graph.py`` raise without one (nothing falls back to the
+    CPU), and run with ``--device cpu``; the production mode of
+    ``launch/train.py`` (the reference's dry run, not ported) refuses with
+    or without a card."""
+    from repro_torch.launch import train, train_lm, web_graph
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.main(["--smoke", "--arch", "yi-6b", "--steps", "2",
+                    "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="is_available"):
+        train.smoke_train("yi-6b", 2, str(tmp_path))
+    with pytest.raises(RuntimeError, match="is_available"):
+        train_lm.main(["--steps", "2"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        web_graph.main()
+    with pytest.raises(NotImplementedError, match="dry run"):
+        train.main(["--arch", "yi-6b"])
+    assert not (tmp_path / "step_0000000002").exists()
+    tr = train.main(["--smoke", "--arch", "yi-6b", "--steps", "2",
+                     "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert tr.device == torch.device("cpu") and len(tr.history) == 2
 
 
 def test_quickstart_raises_without_card(no_card):
