@@ -179,9 +179,39 @@ exits non-zero:
    batch must be below that step's.  13e: ``launch/web_graph.py`` on the
    card prints what it prints on the CPU, and GCN logits on the same
    parameters agree within 1e-5.  Printed on the ``train`` JSON line.
+14. distribution — the model rules of distribution (``repro_torch.
+   distributed``: one process, every mesh of repeated ``cuda:0`` entries,
+   a ``shard_map`` body run once per coordinate; no kernel of the port
+   runs there, as no Pallas kernel runs in ``repro``'s).  14a: the smoke
+   configs of granite-moe and phi3.5-moe with the mesh wired into
+   ``LMConfig`` (granite TP inside the experts at (data 2, model 2),
+   expert parallel at (1, 5), padded at (2, 2); phi expert parallel at
+   (2, 2), TP inside and padded at (1, 8)) on the card against the same
+   mesh of CPU entries: forward logits and aux within 2e-2, the engine
+   teacher-forced as 12a within 2e-2 × max|logit|.  14b: both at full
+   width cut to 2 layers over a model axis of 16 (granite TP inside, phi
+   expert parallel), card against CPU within 2e-2 × max|logit|; granite's
+   expert-parallel (model 8) and TP-inside (model 16) layouts against the
+   unsharded model on the card within that gate, the tokens whose kept
+   experts differ (a near tie flipped by the bf16 order of the sums)
+   named and left out.  14c: granite at full width and depth (32 layers,
+   3.38 B parameters) over (data 2, model 16): ``prefill`` == ``forward``
+   and one decode step == ``forward`` at position 63, both dropless (at
+   capacity factor 1.25 a token's drops depend on its batch; that gap is
+   printed), then requests through ``DecodeEngine`` as 12c, meshed and
+   unsharded, cut to 8 requests of 12 new tokens (``DIST_SERVE``).  14d: ``compressed_psum_with_feedback`` over a data
+   axis of 2 on yi-6b's leaves of one layer plus embed and unembed (0.70
+   B elements a shard), 3 carried steps: card == CPU bit for bit, out +
+   Σ new_e == Σ target within float32 rounding, ms per call.  14e:
+   ``pipeline_apply`` over 4 stages (d 4096, 32 layers, batch 64, 8
+   microbatches): float32 forward within 1e-5 of ``mlp_reference`` on
+   the card, float64 forward and gradients within 1e-5 / 1e-4 (float32
+   gradients printed: relu kinks make them ill-posed at this depth), the
+   float32 fwd+bwd ms beside the reference's.  Printed on the
+   ``distribution`` JSON line.
 
 The last lines are the ``lm`` JSON line, the ``train`` JSON line, the
-``kernels`` JSON line (per kernel: launches on its
+``distribution`` JSON line, the ``kernels`` JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
 the cuda build, K5-K8 in phase 8 — times and bounds at its main launch,
 ``path_ms``, its device time summed over the launches of its path, with
@@ -254,6 +284,27 @@ TRAIN_STEPS = 3
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 TRAIN_SEQ, TRAIN_TIMED = 4096, 6
 H100_BF16_FLOPS = 989e12
+#: phase 14: the MoE archs run over a mesh; 14a's smoke meshes per arch
+#: ((data, model), ep_pad): granite's 5 experts TP inside at model 2,
+#: expert parallel at 5, padded at 2; phi's 4 experts expert parallel at 2,
+#: TP inside and padded at 8 (its smoke d_ff of 64 does not split 5 ways,
+#: and the reference's shard_map refuses that too); 14b's production model
+#: axis, its layers and tokens; 14c's mesh and requests; 14d's data axis
+#: and carried steps; 14e's GPipe (stages, layers, width, batch,
+#: microbatches)
+DIST_ARCHS = ("granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b")
+DIST_SMOKE = {DIST_ARCHS[0]: (((2, 2), False), ((1, 5), False),
+                              ((2, 2), True)),
+              DIST_ARCHS[1]: (((2, 2), False), ((1, 8), False),
+                              ((1, 8), True))}
+DIST_TP, DIST_LAYERS, DIST_TOKENS = 16, 2, 128
+#: 14c's meshed decode tick is host-bound (32 coordinates x 32 layers of
+#: eager ops, about 2.4 s a tick on the H100), so its serve run is cut from
+#: 12c's 16 requests x 32 new tokens to 8 x 12, the unsharded run beside
+#: it to the same
+DIST_MESH, DIST_SERVE = (2, 16), dict(requests=8, max_new_tokens=12)
+PSUM_SHARDS, PSUM_STEPS = 2, 3
+GPIPE = dict(stages=4, layers=32, d=4096, batch=64, micro=8)
 
 
 def _nvidia_smi() -> str:
@@ -2042,7 +2093,8 @@ def _lm_step_bytes(model, positions, batch: int) -> tuple[float, float]:
     kv_row = cfg.n_kv * cfg.head_dim * per * 2 * cfg.n_layers
     kv = slots * kv_row + batch * kv_row
     logits = batch * cfg.padded_vocab * 4
-    macs = batch * (cfg.param_count() - cfg.padded_vocab * cfg.d_model) \
+    macs = batch * (cfg.active_param_count()
+                    - cfg.padded_vocab * cfg.d_model) \
         + slots * cfg.n_heads * cfg.head_dim * 2 * cfg.n_layers
     return float(w + gather + kv + logits), float(2 * macs)
 
@@ -2073,6 +2125,98 @@ def _lm_busy(fn) -> dict:
                 device=[(k[:80], ms) for k, ms, _ in dev[:5]])
 
 
+def _lm_serve(model, rng, card, tag: str, sub: str,
+              requests: int = LM_REQUESTS, **serve) -> dict:
+    """``requests`` requests with prompts of ``LM_PROMPTS`` tokens through
+    ``DecodeEngine(**LM_SERVE)`` (``serve`` overrides it) over ``model`` on
+    ``card``, every prefill and decode tick timed (the device synchronised
+    around each), decode step ``LM_PROFILE_STEP`` under the profiler;
+    printed under ``[tag] sub``.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import DecodeEngine, ServeConfig
+    scfg = ServeConfig(**dict(LM_SERVE, **serve))
+    eng = DecodeEngine(model, scfg, device=card)
+    lens = [int(n) for n in rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1,
+                                         requests)]
+    for n in lens:
+        eng.submit(rng.integers(1, model.cfg.vocab, n))
+    prefill, step = model.prefill, model.decode_step
+    pre_ms, tick_ms, prof = [], [], {}
+
+    def timed_prefill(tokens):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = prefill(tokens)
+        torch.cuda.synchronize()
+        pre_ms.append((int(tokens.shape[1]), (time.perf_counter() - t) * 1e3))
+        return r
+
+    def timed_step(token, cache, position):
+        if len(tick_ms) == LM_PROFILE_STEP:
+            res = []
+            prof.update(_lm_busy(lambda: res.append(step(token, cache,
+                                                         position))))
+            prof["positions"] = position.tolist()
+            tick_ms.append(None)
+            return res[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = step(token, cache, position)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    model.prefill, model.decode_step = timed_prefill, timed_step
+    try:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            done = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    if len(done) != requests:
+        raise SystemExit(f"[{tag}] {sub} {len(done)} of {requests} requests "
+                         f"finished")
+    toks_out = sum(map(len, done))
+    ticks = [t for t in tick_ms if t is not None]
+    nbytes, ops = _lm_step_bytes(model, prof["positions"],
+                                 scfg.max_batch)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / 989e12) * 1e3
+    busy = 100 * prof["busy"] / prof["wall"]
+    c = dict(requests=len(done), tokens=toks_out, wall_s=wall,
+             tokens_per_s=toks_out / wall,
+             prefill_ms=sorted(pre_ms), decode_ticks=len(tick_ms),
+             decode_ms_median=float(np.median(ticks)),
+             decode_ms_min=min(ticks), decode_ms_max=max(ticks),
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             profiled_step=dict(wall_ms=prof["wall"], busy_ms=prof["busy"],
+                                busy_pct=busy, device_activities=prof[
+                                    "events"], top=prof["device"],
+                                positions=prof["positions"]),
+             step_bytes=nbytes, step_ops=ops, step_bound_ms=bound_ms,
+             step_bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
+             ops / 989e12 else "operations")
+    print(f"[{tag}] {sub} served {len(done)} requests (prompts "
+          f"{min(lens)}-{max(lens)} tokens) / {toks_out} tokens in "
+          f"{wall:.2f} s: {toks_out / wall:.1f} tok/s; {len(tick_ms)} "
+          f"decode ticks, median {np.median(ticks):.2f} ms (min "
+          f"{min(ticks):.2f}, max {max(ticks):.2f}); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"[{tag}] {sub} prefill ms by prompt length: " + ", ".join(
+        f"{n}: {ms:.1f}" for n, ms in sorted(pre_ms)))
+    print(f"[{tag}] {sub} decode step {LM_PROFILE_STEP} under the profiler: "
+          f"wall {prof['wall']:.2f} ms, device busy {prof['busy']:.2f} ms "
+          f"({busy:.1f}%), {prof['events']} device activities; its "
+          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s = {bound_ms:.3f} ms bound "
+          f"(by {c['step_bound_by']}); median tick {np.median(ticks):.2f} "
+          f"ms = {np.median(ticks) / bound_ms:.2f}x the bound")
+    print(f"[{tag}] {sub} device: " + "; ".join(
+        f"{k[:60]} {ms:.3f} ms" for k, ms in prof["device"]))
+    del eng
+    return c
+
+
 def _lm(seed: int, card) -> dict:
     """Phase 12: the LM serving tier on ``card``.  Returns the ``lm``
     line's object."""
@@ -2082,7 +2226,7 @@ def _lm(seed: int, card) -> dict:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve import DecodeEngine, ServeConfig
+    from repro_torch.serve import ServeConfig
     rng = np.random.default_rng(seed)
     out = {}
 
@@ -2169,86 +2313,445 @@ def _lm(seed: int, card) -> dict:
           f"(max diff {gap:.6f}), decode step == forward at position 63 "
           f"(max diff {dgap:.6f}, tol {LM_TOL * peak:.6f}), no NaN")
 
-    scfg = ServeConfig(**LM_SERVE)
-    eng = DecodeEngine(model, scfg, device=card)
-    lens = [int(n) for n in rng.integers(LM_PROMPTS[0], LM_PROMPTS[1] + 1,
-                                         LM_REQUESTS)]
-    for n in lens:
-        eng.submit(rng.integers(1, cfg.vocab, n))
-    prefill, step = model.prefill, model.decode_step
-    pre_ms, tick_ms, prof = [], [], {}
-
-    def timed_prefill(tokens):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = prefill(tokens)
-        torch.cuda.synchronize()
-        pre_ms.append((int(tokens.shape[1]), (time.perf_counter() - t) * 1e3))
-        return r
-
-    def timed_step(token, cache, position):
-        if len(tick_ms) == LM_PROFILE_STEP:
-            res = []
-            prof.update(_lm_busy(lambda: res.append(step(token, cache,
-                                                         position))))
-            prof["positions"] = position.tolist()
-            tick_ms.append(None)
-            return res[0]
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = step(token, cache, position)
-        torch.cuda.synchronize()
-        tick_ms.append((time.perf_counter() - t) * 1e3)
-        return r
-
-    model.prefill, model.decode_step = timed_prefill, timed_step
-    try:
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            done = eng.run_until_drained()
-        wall = time.perf_counter() - t0
-    finally:
-        del model.prefill, model.decode_step
-    if len(done) != LM_REQUESTS:
-        raise SystemExit(f"[lm] 12c {len(done)} of {LM_REQUESTS} requests "
-                         f"finished")
-    toks_out = sum(map(len, done))
-    ticks = [t for t in tick_ms if t is not None]
-    nbytes, ops = _lm_step_bytes(model, prof["positions"],
-                                 scfg.max_batch)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / 989e12) * 1e3
-    busy = 100 * prof["busy"] / prof["wall"]
-    c.update(requests=len(done), tokens=toks_out, wall_s=wall,
-             tokens_per_s=toks_out / wall,
-             prefill_ms=sorted(pre_ms), decode_ticks=len(tick_ms),
-             decode_ms_median=float(np.median(ticks)),
-             decode_ms_min=min(ticks), decode_ms_max=max(ticks),
-             max_memory_allocated=torch.cuda.max_memory_allocated(),
-             profiled_step=dict(wall_ms=prof["wall"], busy_ms=prof["busy"],
-                                busy_pct=busy, device_activities=prof[
-                                    "events"], top=prof["device"],
-                                positions=prof["positions"]),
-             step_bytes=nbytes, step_ops=ops, step_bound_ms=bound_ms,
-             step_bound_by="bytes" if nbytes / HBM_BYTES_PER_S >=
-             ops / 989e12 else "operations")
+    c.update(_lm_serve(model, rng, card, "lm", "12c"))
     out["12c"] = c
-    print(f"[lm] 12c served {len(done)} requests (prompts "
-          f"{min(lens)}-{max(lens)} tokens) / {toks_out} tokens in "
-          f"{wall:.2f} s: {toks_out / wall:.1f} tok/s; {len(tick_ms)} "
-          f"decode ticks, median {np.median(ticks):.2f} ms (min "
-          f"{min(ticks):.2f}, max {max(ticks):.2f}); max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    print("[lm] 12c prefill ms by prompt length: " + ", ".join(
-        f"{n}: {ms:.1f}" for n, ms in sorted(pre_ms)))
-    print(f"[lm] 12c decode step {LM_PROFILE_STEP} under the profiler: "
-          f"wall {prof['wall']:.2f} ms, device busy {prof['busy']:.2f} ms "
-          f"({busy:.1f}%), {prof['events']} device activities; its "
-          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s = {bound_ms:.3f} ms bound "
-          f"(by {c['step_bound_by']}); median tick {np.median(ticks):.2f} "
-          f"ms = {np.median(ticks) / bound_ms:.2f}x the bound")
-    print("[lm] 12c device: " + "; ".join(
-        f"{k[:60]} {ms:.3f} ms" for k, ms in prof["device"]))
-    del eng, model
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grid(dev, dd: int, mm: int):
+    """A (data, model) mesh whose every entry is ``dev``."""
+    import numpy as np
+    from repro_torch.distributed import Mesh
+    return Mesh(np.full((dd, mm), str(dev), dtype=object), ("data", "model"))
+
+
+def _placement(n_experts: int, tp: int, pad: bool) -> str:
+    if n_experts % tp == 0:
+        return "expert parallel"
+    return "padded expert parallel" if pad else "TP inside the experts"
+
+
+def _set_cfg(model, cfg) -> None:
+    """Rewire a ``Transformer`` (and its blocks) to ``cfg``: another mesh,
+    or none."""
+    model.cfg = cfg
+    for blk in model.blocks:
+        blk.cfg = cfg
+
+
+@contextlib.contextmanager
+def _routes(forced=None):
+    """Record each MoE router call's own top-k experts (on the host) while
+    the block runs; with ``forced`` (another run's records, call by call)
+    the dispatch takes those experts instead, their gates renormalised
+    from this run's own, so two runs make the same discrete choices (the
+    routing's counterpart of 12a's teacher-forced tokens)."""
+    import torch
+    from repro_torch.models import moe as MT
+    route, rec = MT._route, []
+
+    def recording(xg, router, top_k):
+        gates, vals, idx = route(xg, router, top_k)
+        rec.append(idx.cpu())
+        if forced is None:
+            return gates, vals, idx
+        idx = forced[len(rec) - 1].to(idx.device)
+        vals = torch.gather(gates, -1, idx)
+        return gates, vals / vals.sum(dim=-1, keepdim=True), idx
+
+    MT._route = recording
+    try:
+        yield rec
+    finally:
+        MT._route = route
+
+
+def _flips(own, forced) -> list[int]:
+    """Tokens whose own top-k set differs from the forced one in some
+    router call (a near tie flipped by the bf16 order of the sums)."""
+    out = set()
+    for a, b in zip(own, forced):
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        out |= {t for t in range(a.shape[0])
+                if set(a[t].tolist()) != set(b[t].tolist())}
+    return sorted(out)
+
+
+def _each(rec, n: int) -> list:
+    """One run's per-layer router records repeated for the ``n``
+    coordinates of a data-1 mesh that each route every token."""
+    return [r for r in rec for _ in range(n)]
+
+
+def _dist(seed: int, card) -> dict:
+    """Phase 14: the model rules of distribution on ``card``, every mesh
+    of repeated ``cuda:0`` entries.  Returns the ``distribution`` line's
+    object."""
+    import copy
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.pipeline import (mlp_reference,
+                                                  mlp_stage_fn,
+                                                  pipeline_apply,
+                                                  stack_mlp_params)
+    from repro_torch.models.transformer import (Transformer, init_params,
+                                                init_params_shape)
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.optimizer import compressed_psum_with_feedback
+    from repro_torch.train.tree import leaves_with_paths
+    rng = np.random.default_rng(seed + 14)
+    out = {}
+
+    # 14a: the MoE smoke configs wired to a mesh, card against CPU
+    t0 = time.perf_counter()
+    out["14a"] = {}
+    for name in DIST_ARCHS:
+        base = get_arch(name).smoke_config
+        for (dd, mm), pad in DIST_SMOKE[name]:
+            cfg = dataclasses.replace(base, mesh=_grid("cpu", dd, mm),
+                                      dp_spec="data", tp_axis="model",
+                                      moe_ep_pad=pad)
+            cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+            gpu = copy.deepcopy(cpu).to(card)
+            _set_cfg(gpu, dataclasses.replace(cfg, mesh=_grid(card, dd, mm)))
+            toks = torch.from_numpy(rng.integers(0, base.vocab, (2, 16)))
+            with torch.inference_mode():
+                (lc, ac), (lg, ag) = cpu(toks), gpu(toks.to(card))
+            lerr = float((lg.cpu() - lc).abs().max())
+            aerr = float((ag.cpu() - ac).abs())
+            # the engine's caches evolve on each side, so its gap grows
+            # with the steps (one bf16 ulp at the logits' magnitude, as
+            # unsharded): gated as 12b, 2e-2 x max|logit|
+            prompts = [rng.integers(1, base.vocab, int(rng.integers(3, 12)))
+                       for _ in range(6)]
+            scfg = ServeConfig(max_batch=4, s_cache=64, max_new_tokens=16)
+            row = _lm_forced(cpu, gpu, scfg, prompts)
+            # the same engine run unsharded, beside it
+            _set_cfg(cpu, base)
+            _set_cfg(gpu, base)
+            plain = _lm_forced(cpu, gpu, scfg, prompts)["max_abs_err"]
+            place = _placement(base.n_experts, mm, pad)
+            row.update(mesh=[dd, mm], ep_pad=pad, placement=place,
+                       forward_logit_err=lerr, forward_aux_err=aerr,
+                       unsharded_engine_err=plain)
+            if not (lerr <= LM_TOL and aerr <= LM_TOL):
+                raise SystemExit(f"[dist] 14a {name} at {(dd, mm)}: card "
+                                 f"logits / aux differ from the CPU's by "
+                                 f"{lerr} / {aerr} > {LM_TOL}")
+            out["14a"][f"{name} {dd}x{mm}{' ep_pad' if pad else ''}"] = row
+            print(f"[dist] 14a {name} mesh (data={dd}, model={mm})"
+                  f"{' ep_pad' if pad else ''}: {place}; forward max |logit "
+                  f"card - cpu| {lerr:.6f}, aux {aerr:.2e}; engine "
+                  f"{row['requests']} requests, {row['events']} prefills + "
+                  f"steps teacher-forced, max |logit| err "
+                  f"{row['max_abs_err']:.6f} (tol 2e-2 x "
+                  f"{row['max_abs_logit']:.4f} = {row['tol']:.6f}; "
+                  f"unsharded on the same prompts {plain:.6f})")
+    out["14a_s"] = time.perf_counter() - t0
+
+    # 14b: both MoE archs at full width, cut to DIST_LAYERS layers, on the
+    # production model axis; granite's EP and TP-inside layouts against
+    # the unsharded model too
+    out["14b"] = {}
+    for name in DIST_ARCHS:
+        t0 = time.perf_counter()
+        full = get_arch(name).config
+        base = dataclasses.replace(full, n_layers=DIST_LAYERS)
+        cfg = dataclasses.replace(base, mesh=_grid(card, 1, DIST_TP),
+                                  dp_spec="data", tp_axis="model")
+        gpu = init_params(cfg, torch.Generator(card).manual_seed(seed), card)
+        n_params = sum(p.numel() for p in gpu.parameters())
+        cpu = Transformer(dataclasses.replace(
+            cfg, mesh=_grid("cpu", 1, DIST_TP)), "cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        toks = torch.from_numpy(rng.integers(1, base.vocab,
+                                             (1, DIST_TOKENS)))
+        with torch.inference_mode(), _routes() as recc:
+            lc, ac = cpu(toks)
+        del cpu
+        with torch.inference_mode(), _routes(recc) as recg:
+            lg, ag = gpu(toks.to(card))
+        peak = float(lc.abs().max())
+        err = float((lg.cpu() - lc).abs().max())
+        flips = _flips(recg, recc)
+        row = dict(params=n_params, layers=DIST_LAYERS,
+                   placement=_placement(base.n_experts, DIST_TP, False),
+                   max_abs_err=err, max_abs_logit=peak, tol=LM_TOL * peak,
+                   routing_flips=flips, aux_card=float(ag),
+                   aux_cpu=float(ac))
+        if not err <= LM_TOL * peak:
+            raise SystemExit(f"[dist] 14b {name}: card logits differ from "
+                             f"the CPU's by {err} > 2e-2 x {peak}")
+        print(f"[dist] 14b {name} full width, {DIST_LAYERS} layers "
+              f"({n_params:,} params), mesh (data=1, model={DIST_TP}): "
+              f"{row['placement']}; {DIST_TOKENS} tokens, the card routed "
+              f"as the CPU: max |logit card - cpu| {err:.6f} (tol 2e-2 x "
+              f"{peak:.4f} = {LM_TOL * peak:.6f}); tokens whose own top-k "
+              f"set differed on the card (named): {flips}; aux card "
+              f"{float(ag):.6f} cpu {float(ac):.6f}")
+        if name == DIST_ARCHS[0]:
+            _set_cfg(gpu, dataclasses.replace(base, moe_groups=1))
+            with torch.inference_mode(), _routes() as rec1:
+                lp, _ = gpu(toks.to(card))
+            tol = LM_TOL * float(lp.abs().max())
+            for tag, mm in (("ep_model8", 8), ("tp_inside_model16", DIST_TP)):
+                _set_cfg(gpu, dataclasses.replace(
+                    cfg, mesh=_grid(card, 1, mm)))
+                with torch.inference_mode(), \
+                        _routes(_each(rec1, mm)) as recx:
+                    lx, _ = gpu(toks.to(card))
+                e = float((lx - lp).abs().max())
+                fl = _flips(recx, _each(rec1, mm))
+                row[f"{tag}_vs_unsharded"] = dict(max_abs_err=e, tol=tol,
+                                                  routing_flips=fl)
+                print(f"[dist] 14b {name} {tag} vs unsharded moe_ffn "
+                      f"(moe_groups=1), routed as the unsharded run: max "
+                      f"|logit diff| {e:.6f} (tol {tol:.6f}); tokens whose "
+                      f"own top-k set differed (named): {fl}")
+                if not e <= tol:
+                    raise SystemExit(f"[dist] 14b {name} {tag}: logits "
+                                     f"differ from the unsharded model's by "
+                                     f"{e} > {tol}")
+        row["s"] = time.perf_counter() - t0
+        out["14b"][name] = row
+        del gpu
+        torch.cuda.empty_cache()
+
+    # 14c: granite at full width and depth over (data=2, model=16)
+    t0 = time.perf_counter()
+    full = get_arch(DIST_ARCHS[0]).config
+    cfg = dataclasses.replace(full, mesh=_grid(card, *DIST_MESH),
+                              dp_spec="data", tp_axis="model")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(card).manual_seed(seed), card)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert n_params == full.param_count()
+    c = {"params": n_params, "weight_bytes": w_bytes,
+         "mesh": list(DIST_MESH),
+         "placement": _placement(full.n_experts, DIST_MESH[1], False),
+         "init_s": time.perf_counter() - t0}
+    # The gates run dropless (capacity factor E / k: every expert can take
+    # every token of its data shard).  At the config's 1.25 a token's
+    # output depends on the batch it is dispatched in (GShard capacity):
+    # the 64-token forward shards 32 tokens a data shard (capacity 8), the
+    # 63-token prefill is replicated (capacity 15) and the decode step
+    # dispatches one token (capacity 1), so the tokens each drops differ;
+    # that gap is printed, not gated.
+    toks = torch.from_numpy(rng.integers(1, full.vocab, (1, 64))).to(card)
+
+    def gates():
+        with torch.inference_mode():
+            logits, _ = model(toks)
+            last, _ = model.prefill(toks)
+            _, cache63 = model.prefill(toks[:, :-1])
+            cache = model.init_cache(1, 128)
+            for key, v in cache63.items():
+                cache[key][:, :, :63] = v
+            step, _ = model.decode_step(toks[:, -1].cpu(), cache,
+                                        np.asarray([63], np.int32))
+        finite = bool(torch.isfinite(logits).all()
+                      and torch.isfinite(step).all())
+        return (float((last - logits[:, -1]).abs().max()),
+                float((step - logits[:, -1]).abs().max()),
+                float(logits[:, -1].abs().max()), finite)
+
+    _set_cfg(model, dataclasses.replace(
+        cfg, capacity_factor=full.n_experts / full.top_k))
+    gap, dgap, peak, finite = gates()
+    _set_cfg(model, cfg)
+    gap_cf, dgap_cf, _, finite_cf = gates()
+    if not gap <= LM_TOL:
+        raise SystemExit(f"[dist] 14c prefill's last logits differ from "
+                         f"forward's by {gap}")
+    if not dgap <= LM_TOL * peak:
+        raise SystemExit(f"[dist] 14c decode step differs from forward "
+                         f"at position 63 by {dgap} > 2e-2 x {peak}")
+    if not (finite and finite_cf):
+        raise SystemExit("[dist] 14c NaN or inf in the logits")
+    c.update(prefill_vs_forward=gap, decode_vs_forward=dgap,
+             max_abs_logit=peak, decode_tol=LM_TOL * peak,
+             gate_capacity_factor=full.n_experts / full.top_k,
+             prefill_vs_forward_cf=gap_cf, decode_vs_forward_cf=dgap_cf)
+    print(f"[dist] 14c {full.name} full width and depth ({n_params:,} "
+          f"params, {w_bytes / 1e9:.2f} GB) on mesh (data={DIST_MESH[0]}, "
+          f"model={DIST_MESH[1]}), {c['placement']}; gates (dropless, "
+          f"capacity factor {full.n_experts / full.top_k:g}): prefill == "
+          f"forward at the last position (max diff {gap:.6f}), decode step "
+          f"== forward at position 63 (max diff {dgap:.6f}, tol "
+          f"{LM_TOL * peak:.6f}), no NaN; at the config's capacity factor "
+          f"{full.capacity_factor}: {gap_cf:.6f} and {dgap_cf:.6f} (not "
+          f"gated: capacity drops differ by batch)")
+    c["meshed"] = _lm_serve(model, np.random.default_rng(seed + 140), card,
+                            "dist", "14c meshed", **DIST_SERVE)
+    _set_cfg(model, full)
+    torch.cuda.reset_peak_memory_stats()
+    c["unsharded"] = _lm_serve(model, np.random.default_rng(seed + 140),
+                               card, "dist", "14c unsharded", **DIST_SERVE)
+    c["s"] = time.perf_counter() - t0
+    out["14c"] = c
+    del model
+    torch.cuda.empty_cache()
+
+    # 14d: the compressed gradient psum over a data axis of PSUM_SHARDS,
+    # yi-6b's leaves of one layer plus embed and unembed (and ln_f)
+    t0 = time.perf_counter()
+    shapes = [(p, tuple(v.shape)) for p, v in leaves_with_paths(
+        init_params_shape(dataclasses.replace(get_arch("yi-6b").config,
+                                              n_layers=1)))]
+    n_el = sum(math.prod(sh) for _, sh in shapes)
+    mesh_g, mesh_c = Mesh([card] * PSUM_SHARDS), Mesh(["cpu"] * PSUM_SHARDS)
+    gen = torch.Generator(card).manual_seed(seed)
+    errs_g, errs_c = ([{p: torch.zeros(sh, device=dev) for p, sh in shapes}
+                       for _ in range(PSUM_SHARDS)] for dev in (card, "cpu"))
+    card_ms, cpu_s, worst = [], [], 0.0
+    for t in range(PSUM_STEPS):
+        grads = [{p: (torch.randn(sh, generator=gen, device=card)
+                      * (1e-3 * (i + 1) ** 2)).to(torch.bfloat16)
+                  for p, sh in shapes} for i in range(PSUM_SHARDS)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        red, new_e = compressed_psum_with_feedback(grads, errs_g, "data",
+                                                   mesh_g)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t1) * 1e3)
+        for p, _ in shapes:      # out + sum(new_e) == sum(target)
+            tg = [g[p].float() + e[p] for g, e in zip(grads, errs_g)]
+            lhs = red[0][p] + sum(e[p] for e in new_e)
+            mag = red[0][p].abs() + sum(e[p].abs() + x.abs()
+                                        for e, x in zip(new_e, tg))
+            gap = (lhs - sum(tg)).abs()
+            if not bool((gap <= 8 * 2.0 ** -24 * mag).all()):
+                raise SystemExit(f"[dist] 14d step {t} {p}: out + sum(new_e)"
+                                 f" != sum(target) beyond float32 rounding")
+            worst = max(worst, float((gap / mag.clamp(min=1e-30)).max()))
+            del tg, lhs, mag, gap
+        errs_g = new_e
+        grads_c = [{p: v.cpu() for p, v in g.items()} for g in grads]
+        del grads
+        t1 = time.perf_counter()
+        red_c, new_c = compressed_psum_with_feedback(grads_c, errs_c,
+                                                     "data", mesh_c)
+        cpu_s.append(time.perf_counter() - t1)
+        for i in range(PSUM_SHARDS):
+            for p, _ in shapes:
+                if not (torch.equal(red[i][p].cpu(), red_c[i][p])
+                        and torch.equal(new_e[i][p].cpu(), new_c[i][p])):
+                    raise SystemExit(f"[dist] 14d step {t} shard {i} {p}: "
+                                     f"the card differs from the CPU")
+        errs_c = new_c
+        del red, red_c, grads_c
+    nbytes = n_el * PSUM_SHARDS * (2 + 4 + 4 + 4)
+    out["14d"] = dict(leaves=len(shapes), elements_per_shard=n_el,
+                      shards=PSUM_SHARDS, steps=PSUM_STEPS, card_ms=card_ms,
+                      cpu_s=cpu_s, bytes=nbytes,
+                      bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                      worst_rel_closure=worst,
+                      s=time.perf_counter() - t0)
+    print(f"[dist] 14d compressed_psum_with_feedback over data={PSUM_SHARDS}"
+          f": {len(shapes)} yi-6b leaves, {n_el:,} elements a shard, "
+          f"{PSUM_STEPS} carried steps; card == cpu bit for bit; out + "
+          f"sum(new_e) == sum(target) within float32 rounding (worst "
+          f"{worst:.2e} of the terms); card ms per call "
+          + ", ".join(f"{v:.2f}" for v in card_ms)
+          + f" against a {nbytes / 1e9:.2f} GB bound of "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms; cpu s per call "
+          + ", ".join(f"{v:.1f}" for v in cpu_s))
+    del errs_g, errs_c, new_e, new_c
+    torch.cuda.empty_cache()
+
+    # 14e: GPipe over a stage mesh of 4 on the card, against mlp_reference.
+    # The forward is held in float32.  The float32 gradients are not a
+    # well-posed gate at this depth: a pre-activation within rounding of
+    # zero turns its relu on or off between any two orders of summation,
+    # so mlp_reference itself, on the CPU or the card, differs from a
+    # float64 evaluation by up to ~6e-3 of a layer's max |dW|; they are
+    # printed, and the gradients are held in float64, where the schedule's
+    # own error shows.
+    t0 = time.perf_counter()
+    S, Lg, d = GPIPE["stages"], GPIPE["layers"], GPIPE["d"]
+    B, M = GPIPE["batch"], GPIPE["micro"]
+    gen = torch.Generator(card).manual_seed(seed)
+    params = stack_mlp_params(gen, Lg, d, device=card)
+    x = torch.randn((B, d), generator=gen, device=card)
+    mesh = Mesh([card] * S, ("stage",))
+
+    def pipe(p, xx):
+        return pipeline_apply(mesh, "stage", M, mlp_stage_fn, p, xx)
+
+    def fwd_bwd(fn, dtype=torch.float32):
+        p = {k: v.detach().to(dtype, copy=True).requires_grad_()
+             for k, v in params.items()}
+        xx = x.to(dtype, copy=True).requires_grad_()
+        y = fn(p, xx)
+        (y ** 2).sum().backward()
+        return y.detach(), p["w"].grad, p["b"].grad, xx.grad
+
+    def timed(fn) -> float:
+        fwd_bwd(fn)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd_bwd(fn)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(ms))
+
+    names = ("y", "grad_w", "grad_b", "grad_x")
+
+    def compare(got, want) -> dict:
+        return {nm: dict(max_abs_err=float((a - b).abs().max()),
+                         excess=float(((a - b).abs() - tol * b.abs()).max()
+                                      - tol),
+                         rel_to_max=float((a - b).abs().max()
+                                          / b.abs().max()))
+                for nm, a, b, tol in zip(names, got, want,
+                                         (1e-5, 1e-4, 1e-4, 1e-4))}
+
+    ref32, ref64 = fwd_bwd(mlp_reference), fwd_bwd(mlp_reference,
+                                                     torch.float64)
+    f32 = compare(fwd_bwd(pipe), ref32)
+    f64 = compare(fwd_bwd(pipe, torch.float64), ref64)
+    ref_conditioning = {nm: float((a.double() - b).abs().max()
+                                  / b.abs().max())
+                        for nm, a, b in zip(names, ref32, ref64)}
+    del ref32, ref64
+    if not f32["y"]["excess"] <= 0:
+        raise SystemExit(f"[dist] 14e pipeline_apply's float32 forward "
+                         f"differs from mlp_reference's: {f32['y']}")
+    bad = [nm for nm in names if not f64[nm]["excess"] <= 0]
+    if bad:
+        raise SystemExit(f"[dist] 14e pipeline_apply's float64 "
+                         f"{', '.join(bad)} differ from mlp_reference's "
+                         f"beyond 1e-5 / 1e-4: {f64}")
+    pipe_ms, ref_ms = timed(pipe), timed(mlp_reference)
+    out["14e"] = dict(stages=S, layers=Lg, d=d, batch=B, micro=M,
+                      float32=f32, float64=f64,
+                      reference_f32_vs_f64=ref_conditioning, pipe_ms=pipe_ms,
+                      ref_ms=ref_ms, work_ratio=(M + S - 1) / M,
+                      tf32=torch.backends.cuda.matmul.allow_tf32,
+                      s=time.perf_counter() - t0)
+    print(f"[dist] 14e pipeline_apply over stage={S}, L={Lg}, d={d}, B={B},"
+          f" M={M}: float32 forward within 1e-5 of mlp_reference (max |diff| "
+          f"{f32['y']['max_abs_err']:.2e}); float64 forward and gradients "
+          f"within 1e-5 / 1e-4 (max |diff| / max " + ", ".join(
+              f"{k} {v['rel_to_max']:.1e}" for k, v in f64.items())
+          + "); float32 gradients (relu kinks, printed) max |diff| / max "
+          + ", ".join(f"{k} {f32[k]['rel_to_max']:.1e}" for k in names[1:])
+          + "; mlp_reference itself, float32 against float64: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in ref_conditioning.items())
+          + f"; float32 fwd+bwd {pipe_ms:.2f} ms against mlp_reference's "
+          f"{ref_ms:.2f} ms ({pipe_ms / ref_ms:.2f}x; (M+S-1)/M = "
+          f"{(M + S - 1) / M:.3f})")
+    del params, x
     torch.cuda.empty_cache()
     return out
 
@@ -3161,6 +3664,14 @@ def main() -> int:
     train["s"] = time.perf_counter() - t0
     print(f"[train] phase 13 in {train['s']:.1f} s")
     print(json.dumps({"train": train}))
+
+    # 14. distribution: the model rules of distribution over meshes of
+    # repeated cuda:0 entries (no kernel of the port runs here)
+    t0 = time.perf_counter()
+    dist = _dist(args.seed, torch.device("cuda", 0))
+    dist["s"] = time.perf_counter() - t0
+    print(f"[dist] phase 14 in {dist['s']:.1f} s")
+    print(json.dumps({"distribution": dist}))
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

@@ -13,11 +13,12 @@ torch / cuda backends), ``kernels`` (hand-written CUDA kernels K1-K8:
 machines), ``store`` (page stores and the resident pool), ``segment``
 (streaming segments), ``serve`` (coalescing scheduler and
 ``QueryServer``; the LM tier's continuous-batching ``DecodeEngine``),
-``distributed`` (the mesh of list-sharded serving), ``models`` (the five
+``distributed`` (the mesh of named device axes, the partition rules,
+``shard_map``'s collectives in one process, GPipe), ``models`` (the five
 LM architectures as ``nn.Module``s, GCN, the recsys models, and the
 carrier of the reference's parameters), ``configs`` (the architecture
 registry) and ``launch`` (the serving launcher, both tiers; the
-quickstart flow; the assigned cell grid).
+quickstart flow; the assigned cell grid; mesh construction).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``; without a card the CUDA default raises.

@@ -150,8 +150,11 @@ def _placement(dev: torch.device) -> torch.device:
 
 
 def _check_placement(mesh: Mesh, home: torch.device) -> None:
-    """An engine serves a mesh only from one of the mesh's devices:
-    nothing is moved silently."""
+    """An engine serves a mesh of the one ``data`` axis, and only from one
+    of the mesh's devices: nothing is moved silently."""
+    if mesh.axis_names != ("data",):
+        raise ValueError(f"list-sharded serving runs over the one 'data' "
+                         f"axis, not a mesh of axes {mesh.axis_names}")
     if home not in [_placement(d) for d in mesh.devices]:
         raise ValueError(f"engine on {home} is not a device of the mesh "
                          f"{[str(d) for d in mesh.devices]}")

@@ -7,8 +7,8 @@ Two modes, as the reference's ``repro/launch/train.py``:
   (:func:`smoke_train`);
 * default — the reference's production posture, the full config's
   lowering spec compiled on the production mesh by its dry run
-  (``dryrun.run_cell``).  The dry run belongs to the distribution slice
-  and is not ported: this mode raises, and runs nothing else.
+  (``dryrun.run_cell``).  The dry run is roadmap item 15(d), not ported
+  yet: this mode raises, and runs nothing else.
 
 The run is on the card (``--device cuda``, the default; it raises without
 one) unless ``--device cpu`` is given.
@@ -72,8 +72,8 @@ def production_compile(arch_name: str, shape: str, multi_pod: bool) -> None:
         f"train.py --arch {arch_name} --shape {shape}"
         f"{' --multi-pod' if multi_pod else ''}: the production mode "
         f"compiles the full config through the reference's dry run "
-        f"(dryrun.run_cell), which the port has not ported yet; run "
-        f"--smoke instead")
+        f"(dryrun.run_cell), roadmap item 15(d), which the port has not "
+        f"ported yet; run --smoke instead")
 
 
 def main(argv=None):

@@ -13,7 +13,9 @@ the float32 value came from a bf16 one): the round trip is bit-exact.
 * :func:`tree_from_numpy` — any tree of dicts, lists and arrays (GCN's and
   the recsys models' parameters, which the port keeps as such trees);
 * :func:`lm_params_to_numpy` — back: a model as the reference's stacked
-  tree of numpy arrays.
+  tree of numpy arrays;
+* :func:`mlp_params_from_numpy` — the reference's stacked MLP of its GPipe
+  demo (``distributed/pipeline.py::stack_mlp_params``) as the port's.
 """
 
 from __future__ import annotations
@@ -82,3 +84,12 @@ def lm_params_to_numpy(model: Transformer) -> dict:
     return tree_map(lambda leaf: (leaf.stack() if isinstance(leaf, Stacked)
                                   else leaf.detach()).cpu().float().numpy(),
                     model)
+
+
+def mlp_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The reference's ``stack_mlp_params`` tree (numpy ``w`` (L, d, d)
+    and ``b`` (L, d)) as the port's, on ``device``."""
+    if set(tree) != {"w", "b"}:
+        raise ValueError(f"a stacked MLP has leaves w and b, got "
+                         f"{sorted(tree)}")
+    return {k: tensor_from_numpy(tree[k], device) for k in ("w", "b")}

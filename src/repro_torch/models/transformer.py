@@ -35,16 +35,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import Mesh
 from ..kernels import resolve_device
 from . import layers as L
 from .layers import Dtype
 from .moe import init_moe, moe_ffn
-
-#: the reference's mesh wiring (set by its production launcher); the port's
-#: model runs on one device until the distribution slice, so each must be
-#: left at its default
-_MESH_FIELDS = ("dp_spec", "tp_axis", "mesh", "sp_axis", "attn_head_shard",
-                "moe_ep_pad")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +71,15 @@ class LMConfig:
     window: int | None = None    # sliding-window attention (long-context)
     vocab_pad_to: int = 512      # pad vocab so it shards evenly
     kv_chunk: int = 1024
-    # mesh wiring: must stay unset in the port (see ``_MESH_FIELDS``)
-    dp_spec: Any = None
-    tp_axis: Any = None
-    mesh: Any = None
-    sp_axis: Any = None
+    # mesh wiring (None in the single-device tests): with ``mesh`` (the
+    # port's Mesh) and ``tp_axis`` set, the MoE dispatches through
+    # ``moe_ffn_sharded``; ``sp_axis`` and ``attn_head_shard`` are the
+    # reference's layout constraints, which change no value (the
+    # parameters stay on the model's device), so here they compute nothing
+    dp_spec: Any = None          # axis (or tuple) the batch shards over
+    tp_axis: Any = None          # the tensor-parallel axis name
+    mesh: Any = None             # the Mesh (enables the sharded MoE)
+    sp_axis: Any = None          # sequence-parallel axis of activations
     unroll_layers: bool = False  # the reference's scan unroll (its dry-run
     #                              cost accounting); the port's layer loop
     #                              is a Python loop, unrolled either way
@@ -89,15 +88,13 @@ class LMConfig:
     #                              on one device it changes only the
     #                              logits of ``forward`` (rounded to bf16)
     flash_p_bf16: bool = False   # bf16 attention probability tiles
-    moe_ep_pad: bool = False     # mesh wiring (expert padding)
-    attn_head_shard: bool = False  # mesh wiring (head-sharded carry)
+    moe_ep_pad: bool = False     # pad experts to a tp multiple -> EP
+    attn_head_shard: bool = False  # pin the flash kv chunks head-sharded
 
     def __post_init__(self):
-        for f in _MESH_FIELDS:
-            if getattr(self, f):
-                raise NotImplementedError(
-                    f"LMConfig.{f}: mesh wiring is not ported yet (the "
-                    f"port's model runs on one device)")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"LMConfig.mesh must be a repro_torch Mesh, got "
+                            f"{type(self.mesh).__name__}")
 
     @property
     def padded_vocab(self) -> int:
@@ -167,6 +164,9 @@ class Block(nn.Module):
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
 
     def _attention(self, h, positions, p_bf16: bool):
+        # the reference's ``attn_shard`` (cfg.attn_head_shard) pins the
+        # chunk-stacked kv operands with a sharding constraint: a layout,
+        # not a value, so it computes nothing here
         cfg = self.cfg
         if cfg.attn == "mla":
             return L.mla_attention(
@@ -190,7 +190,9 @@ class Block(nn.Module):
             out, aux = moe_ffn(self.ffn, h.reshape(B * S, d),
                                n_experts=cfg.n_experts, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
-                               num_groups=cfg.moe_groups)
+                               num_groups=cfg.moe_groups,
+                               dp_spec=cfg.dp_spec, tp_axis=cfg.tp_axis,
+                               mesh=cfg.mesh, ep_pad=cfg.moe_ep_pad)
             return x + out.reshape(B, S, d), aux
         return x + L.swiglu(h, **self.ffn), \
             torch.zeros((), dtype=torch.float32, device=x.device)
@@ -258,12 +260,14 @@ class Transformer(nn.Module):
 
     ``Transformer(cfg, device=...)`` allocates the parameters, uninitialized,
     on ``device`` — ``"cuda"`` by default, which raises without a card;
+    ``"meta"`` gives their shapes only (:func:`init_params_shape`);
     :func:`init_params` fills them from a seeded generator and
     ``models.convert.lm_params_from_numpy`` from the reference's tree."""
 
     def __init__(self, cfg: LMConfig, device="cuda"):
         super().__init__()
-        dev = resolve_device(device)
+        dev = torch.device("meta") if torch.device(device).type == "meta" \
+            else resolve_device(device)
         self.cfg = cfg
         V, d = cfg.padded_vocab, cfg.d_model
 
@@ -337,6 +341,9 @@ class Transformer(nn.Module):
         x = self.embed[tokens.long()]                   # gather (B, S, d)
         positions = torch.arange(S, device=self.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        # the reference constrains the carry between layers to (dp, sp,
+        # None) when cfg.sp_axis is set (``_sp_constrain``): a layout, not
+        # a value, so nothing here
         for blk in self.blocks:
             if torch.is_grad_enabled() and blk.ln1.requires_grad:
                 x, a = checkpoint(blk, x, positions, use_reentrant=False)
@@ -443,3 +450,10 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
         model.ln_f.fill_(1.0)
         model.unembed.copy_(L.randn_scaled(generator, (d, V), s, Dtype, dev))
     return model
+
+
+def init_params_shape(cfg: LMConfig) -> Transformer:
+    """The parameters' shapes and dtypes, nothing allocated: a
+    :class:`Transformer` on the meta device (the reference's
+    ``ShapeDtypeStruct`` tree, for the dry run and the partition rules)."""
+    return Transformer(cfg, "meta")

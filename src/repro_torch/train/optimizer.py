@@ -25,9 +25,13 @@ things:
 ``adamw_update`` writes the parameters and the moments in place (the
 counterpart of the reference's ``donate_argnums``).  The moments are
 float32 trees in the reference's layout, a stacked leaf's moments one
-``(L, ...)`` tensor.  The reference's cross-pod collective
-(``compressed_psum_with_feedback``) and its dry-run shapes
-(``init_opt_state_shape``) belong to the distribution slice.
+``(L, ...)`` tensor; ``init_opt_state_shape`` gives their shapes as meta
+tensors (the dry run's).
+
+``compressed_psum_with_feedback`` is the reference's cross-pod gradient
+collective, run over per-coordinate gradient trees of a mesh
+(``distributed/spmd.py``): the int8 payload is summed exactly and the
+scale max-reduced, so a card and the CPU give the same bits.
 """
 
 from __future__ import annotations
@@ -38,8 +42,9 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..distributed.spmd import pmax, psum
 from .tree import (Stacked, device_of, leaves, leaves_with_paths, parts,
-                   tree_map)
+                   rebuild, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +77,17 @@ def init_opt_state(params: Any) -> OptState:
     return OptState(mu=tree_map(_zeros, params), nu=tree_map(_zeros, params),
                     count=torch.zeros((), dtype=torch.int32,
                                       device=device_of(params)))
+
+
+def init_opt_state_shape(params_shape: Any) -> OptState:
+    """The optimizer state's shapes and dtypes as meta tensors (the dry
+    run's): float32 moments of the parameters' shapes, an int32 count."""
+    def f32(p):
+        return torch.empty(tuple(p.shape), dtype=torch.float32, device="meta")
+
+    return OptState(mu=tree_map(f32, params_shape),
+                    nu=tree_map(f32, params_shape),
+                    count=torch.empty((), dtype=torch.int32, device="meta"))
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -166,12 +182,45 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
 # -- gradient compression (int8 with error feedback) ---------------------------
 
 def compress_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8 quantization; returns (q, scale)."""
+    """Symmetric per-tensor int8 quantization; returns (q, scale), the
+    scale a 0-d tensor on ``g``'s device.  Both divisions are by device
+    tensors: CUDA divides by a host scalar as a product with its
+    reciprocal, which can differ from the quotient in the last bit."""
     amax = g.abs().max() + 1e-12
-    scale = amax / 127.0
+    scale = amax / torch.full((), 127.0, dtype=amax.dtype,
+                              device=amax.device)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
 def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+def compressed_psum_with_feedback(grads: list, errors: list, axis, mesh
+                                  ) -> tuple[list, list]:
+    """The reference's ``shard_map`` body over a mesh: ``grads`` and
+    ``errors`` hold one tree per mesh coordinate (on its device, in the
+    mesh's order).  Per leaf, each coordinate quantizes (grad + carried
+    error) to int8, the int8 payload is summed over ``axis`` (the slow
+    cross-pod hop) and the scales max-reduced, and each coordinate
+    dequantizes the sum and carries its residual.  As in the reference,
+    the residual is taken against the max-reduced scale:
+    ``new_e = target - q * max_scale`` with ``q`` quantized at the local
+    scale, so ``out + Σ new_e == Σ target`` while ``new_e`` is not the
+    quantization error where the scales differ.  Returns (the reduced
+    trees, the new error trees)."""
+    g_leaves = [leaves(g) for g in grads]
+    e_leaves = [leaves(e) for e in errors]
+    outs = [[] for _ in grads]
+    errs = [[] for _ in grads]
+    for j in range(len(g_leaves[0])):
+        targets = [g[j].float() + e[j] for g, e in zip(g_leaves, e_leaves)]
+        qs, scales = zip(*(compress_int8(t) for t in targets))
+        summed = psum([q.to(torch.int32) for q in qs], axis, mesh)
+        scales = pmax(scales, axis, mesh)
+        for i, (t, q, s, sc) in enumerate(zip(targets, qs, summed, scales)):
+            outs[i].append(s.float() * sc)
+            errs[i].append(t - decompress_int8(q, sc))
+    return ([rebuild(g, o) for g, o in zip(grads, outs)],
+            [rebuild(e, r) for e, r in zip(errors, errs)])

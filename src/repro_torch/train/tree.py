@@ -127,6 +127,13 @@ def tree_map(fn: Callable, tree):
     return map_with_paths(one, tree)
 
 
+def rebuild(tree, values) -> Any:
+    """``tree``'s containers with its leaves replaced by ``values``, in
+    :func:`leaves` order."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
+
+
 def parts(leaf) -> list[torch.Tensor]:
     """The tensors a leaf is held in: a :class:`Stacked` leaf's per-layer
     tensors, else the leaf itself."""

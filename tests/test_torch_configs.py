@@ -82,11 +82,15 @@ def test_yi_6b_full_size():
 @pytest.mark.parametrize("field", ["dp_spec", "tp_axis", "mesh", "sp_axis",
                                    "attn_head_shard", "moe_ep_pad"])
 def test_mesh_wiring_refused(field):
-    """The reference's mesh wiring is not ported: setting it raises at
-    once instead of being a knob that does nothing."""
+    """The reference's mesh wiring takes the port's ``Mesh``: a config
+    with any other mesh is refused at once, whatever else it sets; the
+    fields alone are accepted, as the reference accepts them."""
     cfg = get_arch("phi3.5-moe-42b-a6.6b").smoke_config
-    with pytest.raises(NotImplementedError, match=field):
-        dataclasses.replace(cfg, **{field: True if field in (
-            "attn_head_shard", "moe_ep_pad") else "model"})
+    value = True if field in ("attn_head_shard", "moe_ep_pad") else "model"
+    with pytest.raises(TypeError, match="mesh"):
+        dataclasses.replace(cfg, **{"mesh": "model", field: value})
+    if field != "mesh":
+        assert getattr(dataclasses.replace(cfg, **{field: value}),
+                       field) == value
     assert dataclasses.replace(cfg, unroll_layers=True).unroll_layers
     assert isinstance(cfg, TT.LMConfig)

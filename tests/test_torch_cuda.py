@@ -78,7 +78,13 @@ installed:
   position;
 * training: ``matmul_f32``'s gradient on the card (the logits' float32
   product, through its ``autograd.Function``) against the CPU's, and one
-  train step of each LM smoke arch on the card against the CPU.
+  train step of each LM smoke arch on the card against the CPU;
+* distribution, on meshes of repeated ``cuda:0`` entries against the same
+  meshes of CPU entries: ``moe_ffn_sharded`` in each placement (TP inside,
+  expert parallel, padded, two data shards; 2e-2), the granite smoke LM
+  with the mesh wired in (2e-2), ``compressed_psum_with_feedback`` bit for
+  bit over 2 and 3 shards, and ``pipeline_apply`` forward and gradients
+  (and against ``mlp_reference`` on the card, 1e-5 / 1e-4).
 """
 
 import numpy as np
@@ -1308,3 +1314,110 @@ def test_train_step_on_card_matches_cpu(card, name):
     for path, a in leaves_with_paths(lm_params_to_numpy(cpu)):
         assert np.abs(a - on_card[path]).max() <= 2e-2 * np.abs(a).max(), \
             path
+
+
+def _grid(dev, dd: int, mm: int):
+    from repro_torch.distributed import Mesh
+    return Mesh(np.full((dd, mm), str(dev), dtype=object), ("data", "model"))
+
+
+@pytest.mark.parametrize("E, shape, pad", [(5, (1, 2), False),
+                                           (5, (2, 2), False),
+                                           (5, (1, 5), False),
+                                           (5, (1, 2), True),
+                                           (4, (2, 2), False)])
+def test_moe_sharded_on_card_matches_cpu(card, E, shape, pad):
+    from repro_torch.models.moe import init_moe, moe_ffn_sharded
+    p = init_moe(torch.Generator().manual_seed(E), 64, 32, E)
+    x = torch.randn((24, 64), generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    kw = dict(n_experts=E, top_k=2, capacity_factor=1.25, dp_spec="data",
+              tp_axis="model", ep_pad=pad)
+    yc, ac = moe_ffn_sharded(p, x, mesh=_grid("cpu", *shape), **kw)
+    yg, ag = moe_ffn_sharded({k: v.to(card) for k, v in p.items()},
+                             x.to(card), mesh=_grid(card, *shape), **kw)
+    assert yg.device == card and ag.device == card
+    torch.testing.assert_close(yg.cpu().float(), yc.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(ag.cpu(), ac, rtol=1e-5, atol=1e-6)
+
+
+def test_meshed_lm_on_card_matches_cpu(card):
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import init_params
+    base = get_arch("granite-moe-3b-a800m").smoke_config
+    cpu = init_params(dataclasses.replace(
+        base, mesh=_grid("cpu", 2, 2), dp_spec="data", tp_axis="model"),
+        torch.Generator().manual_seed(0), "cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    for blk in gpu.blocks:
+        blk.cfg = dataclasses.replace(blk.cfg, mesh=_grid(card, 2, 2))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, base.vocab, (2, 12)))
+    (lc, ac), (lg, ag) = cpu(toks), gpu(toks.to(card))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(ag.cpu(), ac, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_compressed_psum_on_card_bit_exact(card, n):
+    from repro_torch.distributed import Mesh
+    from repro_torch.train.optimizer import compressed_psum_with_feedback
+    gen = torch.Generator().manual_seed(n)
+    shapes = {"w": (33, 70), "g": (1000,), "s": ()}
+
+    def grads():
+        return [{k: (torch.randn(s, generator=gen) * (i + 1) ** 3).to(
+            torch.bfloat16 if k == "g" else torch.float32)
+            for k, s in shapes.items()} for i in range(n)]
+
+    res = {}
+    steps = [grads() for _ in range(3)]
+    for dev in ("cpu", card):
+        mesh = Mesh([dev] * n)
+        err = [{k: torch.zeros(s, device=dev) for k, s in shapes.items()}
+               for _ in range(n)]
+        outs = []
+        for g in steps:
+            g = [{k: v.to(dev) for k, v in t.items()} for t in g]
+            out, err = compressed_psum_with_feedback(g, err, "data", mesh)
+            outs.append((out, err))
+        res[str(dev)] = outs
+    for (oc, ec), (og, eg) in zip(res["cpu"], res[str(card)]):
+        for i in range(n):
+            for k in shapes:
+                assert torch.equal(og[i][k].cpu(), oc[i][k]), k
+                assert torch.equal(eg[i][k].cpu(), ec[i][k]), k
+
+
+def test_pipeline_on_card_matches_cpu(card):
+    from repro_torch.distributed import Mesh
+    from repro_torch.distributed.pipeline import (mlp_reference,
+                                                  mlp_stage_fn,
+                                                  pipeline_apply,
+                                                  stack_mlp_params)
+    p = stack_mlp_params(torch.Generator().manual_seed(0), 8, 64,
+                         device="cpu")
+    x = torch.randn((12, 64), generator=torch.Generator().manual_seed(1))
+    got = {}
+    for dev in ("cpu", card):
+        pp = {k: v.detach().clone().to(dev).requires_grad_()
+              for k, v in p.items()}
+        y = pipeline_apply(Mesh([dev] * 4, ("stage",)), "stage", 3,
+                           mlp_stage_fn, pp, x.to(dev))
+        (y ** 2).sum().backward()
+        pr = {k: v.detach().clone().to(dev).requires_grad_()
+              for k, v in p.items()}
+        r = mlp_reference(pr, x.to(dev))
+        (r ** 2).sum().backward()
+        torch.testing.assert_close(y, r, rtol=1e-5, atol=1e-5)
+        for k in p:
+            torch.testing.assert_close(pp[k].grad, pr[k].grad, rtol=1e-4,
+                                       atol=1e-4)
+        got[str(dev)] = (y.detach().cpu(), pp["w"].grad.cpu())
+    torch.testing.assert_close(got[str(card)][0], got["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got[str(card)][1], got["cpu"][1], rtol=1e-4,
+                               atol=1e-4)

@@ -319,11 +319,18 @@ def test_moe_ffn_capacity_overflow(rng):
 
 
 def test_moe_ffn_refuses_mesh(rng):
+    """A mesh that is not the port's ``Mesh`` is refused; ``tp_axis``
+    without a mesh is the reference's layout constraint on the grouped
+    path, which changes no value."""
     p = {k: _t(v) for k, v in _moe_params(rng).items()}
     x = _t(_normal(rng, (4, 32)))
-    for kw in ({"mesh": object()}, {"tp_axis": "model"}):
-        with pytest.raises(NotImplementedError, match="sharded"):
+    for kw in ({"mesh": object()}, {"mesh": object(), "tp_axis": "model"}):
+        with pytest.raises(TypeError, match="Mesh"):
             MT.moe_ffn(p, x, n_experts=5, top_k=2, **kw)
+    want = MT.moe_ffn(p, x, n_experts=5, top_k=2)
+    got = MT.moe_ffn(p, x, n_experts=5, top_k=2, tp_axis="model",
+                     dp_spec="data")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # -- GCN --------------------------------------------------------------------------

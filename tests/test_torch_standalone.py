@@ -89,7 +89,9 @@ def test_imports_without_jax_or_repro():
             "repro_torch.train.checkpoint", "repro_torch.train.loop",
             "repro_torch.train.tree", "repro_torch.launch.train",
             "repro_torch.launch.train_lm",
-            "repro_torch.launch.web_graph"} <= mods
+            "repro_torch.launch.web_graph", "repro_torch.launch.mesh",
+            "repro_torch.distributed.spmd",
+            "repro_torch.distributed.pipeline"} <= mods
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -297,6 +299,21 @@ def test_train_entry_points_raise_without_card(no_card, tmp_path):
     tr = train.main(["--smoke", "--arch", "yi-6b", "--steps", "2",
                      "--ckpt-dir", str(tmp_path), "--device", "cpu"])
     assert tr.device == torch.device("cpu") and len(tr.history) == 2
+
+
+def test_distribution_entry_points_raise_without_card(no_card):
+    """The mesh constructors and ``stack_mlp_params`` run on the card
+    unless asked otherwise; on the CPU they run."""
+    from repro_torch.distributed.pipeline import stack_mlp_params
+    from repro_torch.launch import mesh as LM
+    for make in (LM.make_production_mesh, lambda: LM.make_host_mesh(1, 2)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    with pytest.raises(RuntimeError, match="is_available"):
+        stack_mlp_params(torch.Generator().manual_seed(0), 2, 8)
+    assert LM.make_host_mesh(2, 2, device="cpu").size == 1
+    assert stack_mlp_params(torch.Generator().manual_seed(0), 2, 8,
+                            device="cpu")["w"].shape == (2, 8, 8)
 
 
 def test_quickstart_raises_without_card(no_card):
