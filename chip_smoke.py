@@ -209,9 +209,30 @@ exits non-zero:
    gradients printed: relu kinks make them ill-posed at this depth), the
    float32 fwd+bwd ms beside the reference's.  Printed on the
    ``distribution`` JSON line.
+15. dryrun — the dry run (``repro_torch.launch.dryrun``: every cell's
+   step traced on the meta device; no kernel of the port runs there, as
+   none runs in ``repro``'s).  15a: all 43 cells on both production
+   meshes (86 records, meta entries, nothing allocated), each ``"ok"``;
+   per family its largest per-device ``peak_bytes`` and that cell's
+   bottleneck; every cell whose argument bytes alone pass the card's 80
+   GB named.  15b: the dry run against the card's own run of the same
+   spec on a (1, 1) mesh of ``cuda:0``: yi-6b's ``lm_train_spec`` at full
+   width, 2 layers, seq 4096, batch 1 (13b's step), and one decode tick
+   of 12c's shape (32 layers, batch 8, ``s_cache`` 2048); gates: the
+   traced FLOPs equal ``FlopCounterMode``'s count of the card's run, and
+   the argument bytes the bytes of the real arguments, exactly; printed:
+   predicted ``peak_bytes`` against ``max_memory_allocated`` (above what
+   was allocated before), the compute and memory terms against the
+   measured step or tick.  15c: ``CheckpointManager.restore(shardings=)``
+   of a saved yi-6b smoke state onto (2, 2) and (1, 4) meshes of
+   repeated ``cuda:0``: every shard equals ``shard_tensor`` of the saved
+   tensor bit for bit; and ``launch/train.py --arch yi-6b`` (production
+   mode) returns an ``"ok"`` record.  Printed on the ``dryrun`` JSON
+   line.
 
 The last lines are the ``lm`` JSON line, the ``train`` JSON line, the
-``distribution`` JSON line, the ``kernels`` JSON line (per kernel: launches on its
+``distribution`` JSON line, the ``dryrun`` JSON line, the ``kernels``
+JSON line (per kernel: launches on its
 path — K1 and K2 while serving ``repair``, K3 while serving ``ef``, K4 in
 the cuda build, K5-K8 in phase 8 — times and bounds at its main launch,
 ``path_ms``, its device time summed over the launches of its path, with
@@ -305,6 +326,13 @@ DIST_TP, DIST_LAYERS, DIST_TOKENS = 16, 2, 128
 DIST_MESH, DIST_SERVE = (2, 16), dict(requests=8, max_new_tokens=12)
 PSUM_SHARDS, PSUM_STEPS = 2, 3
 GPIPE = dict(stages=4, layers=32, d=4096, batch=64, micro=8)
+
+
+#: phase 15: the card's memory, against which 15a names the cells whose
+#: arguments alone do not fit one card; 15b's timed train steps and
+#: decode ticks
+CARD_BYTES = 80e9
+DRY_STEPS, DRY_TICKS = 3, 10
 
 
 def _nvidia_smi() -> str:
@@ -3181,6 +3209,360 @@ def _train(seed: int, card) -> dict:
     return out
 
 
+def _arg_bytes(*trees) -> int:
+    from repro_torch.train.tree import leaves_with_paths, parts
+    return sum(p.numel() * p.element_size() for tree in trees
+               for _, leaf in leaves_with_paths(tree) for p in parts(leaf))
+
+
+def _live_at_peak(step, top: int = 6) -> dict:
+    """``step()`` under the allocator's history: the bytes its own
+    allocations hold at their peak, and the largest of them then, summed
+    by where they were made (the first frame in the repo, else the first
+    frame); and those still held when it returns."""
+    import torch
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000,
+                                             stacks="python")
+    try:
+        step()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = [e for trace in snap["device_traces"] for e in trace]
+    freed = "free_completed" if any(e["action"] == "free_completed"
+                                    for e in events) else "free_requested"
+    live, now, best, at = {}, 0, 0, {}
+    for e in events:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            now += e["size"]
+        elif e["action"] == freed and e["addr"] in live:
+            now -= live.pop(e["addr"])["size"]
+        else:
+            continue
+        if now > best:
+            best, at = now, dict(live)
+
+    def origin(e) -> str:
+        frames = e.get("frames") or [{"filename": "?", "line": 0,
+                                      "name": "?"}]
+        f = next((f for f in frames if "repro_torch" in f["filename"]),
+                 frames[0])
+        return (f"{f['filename'].split('src/')[-1].split('packages/')[-1]}"
+                f":{f['line']} ({f['name']})")
+
+    def largest(blocks) -> list:
+        by = {}
+        for e in blocks:
+            k = origin(e)
+            by[k] = by.get(k, 0) + e["size"]
+        return sorted(by.items(), key=lambda kv: -kv[1])[:top]
+
+    return dict(peak_bytes=best, blocks=len(at),
+                largest=largest(at.values()),
+                kept_bytes=sum(e["size"] for e in live.values()),
+                kept=largest(live.values()))
+
+
+def _peak_line(c: dict) -> str:
+    """15b's memory reading: the dry run's temp bytes against each step's
+    own peak (``max_memory_allocated`` less what the arguments hold), and
+    what the allocator's history finds live at the first step's peak."""
+    def gb(items) -> str:
+        return ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in items)
+
+    first, counted = (c["first_step_live_at_peak"],
+                      c["counted_step_live_at_peak"])
+    return (f"predicted temp {c['temp_bytes'] / 1e9:.3f} GB against the "
+            f"steps' own peaks (first, under FlopCounterMode, timed) "
+            + ", ".join(f"{p / 1e9:.3f}" for p in c["step_peaks"])
+            + f" GB (peak {c['peak_bytes'] / 1e9:.3f} against the plain "
+            f"steps' {c['measured_peak_bytes'] / 1e9:.3f} GB; arguments "
+            f"allocated "
+            f"{c['arguments_allocated'] / 1e9:.3f} GB); at the first "
+            f"step's peak {first['peak_bytes'] / 1e9:.3f} GB in "
+            f"{first['blocks']} blocks, the largest by origin: "
+            f"{gb(first['largest'])}; still held after it "
+            f"{first['kept_bytes'] / 1e9:.3f} GB: {gb(first['kept'])}; at "
+            f"the FlopCounterMode step's peak "
+            f"{counted['peak_bytes'] / 1e9:.3f} GB in {counted['blocks']} "
+            f"blocks: {gb(counted['largest'])}")
+
+
+def _calibrate(spec, run, card, reps: int) -> dict:
+    """The dry run's counts of ``spec`` against ``run()``, which builds
+    the spec's real arguments on ``card`` and returns them with a step on
+    them.  Each step's own peak is read from after the arguments exist
+    (``max_memory_allocated`` less what they hold): the first step under
+    the allocator's history (:func:`_live_at_peak`), one under
+    ``FlopCounterMode``, ``reps`` timed with CUDA events.  Gates: FLOPs
+    and argument bytes exact."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hlo_analysis import roofline_from_counts
+    t0 = time.perf_counter()
+    dry = D.count_spec(spec)
+    terms = roofline_from_counts(dry.flops, dry.hbm_bytes, dry.collectives,
+                                 1)
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args, step = run()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    peaks = []
+
+    def own():
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - held)
+
+    live = _live_at_peak(own)
+    with FlopCounterMode(display=False) as fc:
+        counted = _live_at_peak(own)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ms = []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        step()
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        peaks.append(torch.cuda.max_memory_allocated() - held)
+    real = _arg_bytes(*args)
+    flops = fc.get_total_flops()
+    if dry.flops != flops or dry.argument_bytes != real:
+        raise SystemExit(f"[dryrun] 15b the dry run counts {dry.flops} "
+                         f"FLOPs and {dry.argument_bytes} argument bytes; "
+                         f"the card's run {flops} and {real}")
+    med = sorted(ms)[len(ms) // 2]
+    plain = peaks[:1] + peaks[2:]     # not the FlopCounterMode step's
+    return dict(flops=flops, argument_bytes=real,
+                arguments_allocated=held - base,
+                temp_bytes=dry.temp_bytes, step_peaks=peaks,
+                measured_temp_bytes=max(plain),
+                peak_bytes=dry.temp_bytes + dry.argument_bytes,
+                measured_peak_bytes=held - base + max(plain),
+                first_step_live_at_peak=live,
+                counted_step_live_at_peak=counted, hbm_bytes=dry.hbm_bytes,
+                compute_ms=terms.compute_s * 1e3,
+                memory_ms=terms.memory_s * 1e3, ms=ms, ms_median=med,
+                roofline_share=max(terms.compute_s, terms.memory_s) * 1e3
+                / med, trace_s=trace_s)
+
+
+def _dryrun(seed: int, card, lm: dict | None = None) -> dict:
+    """Phase 15: the dry run.  Returns the ``dryrun`` line's object."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import Mesh, P, shard_tensor
+    from repro_torch.distributed.sharding import (lm_param_spec, spec_tree,
+                                                  zero1_spec)
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import OptState, init_opt_state
+    from repro_torch.train.tree import Stacked, leaves_with_paths
+    out = {}
+
+    # 15a: every cell on both production meshes, on the meta device
+    t0 = time.perf_counter()
+    recs = [D.run_cell(a, s, mp, verbose=False)
+            for mp in (False, True) for a, s in SP.all_cells()]
+    bad = [(r["arch"], r["shape"], r["mesh"]) for r in recs
+           if r["status"] != "ok"]
+    if len(recs) != 86 or bad:
+        raise SystemExit(f"[dryrun] 15a {len(recs)} records, not ok: {bad}")
+    fams = {}
+    for r in recs:
+        f = get_arch(r["arch"]).family
+        if f not in fams or r["memory"]["peak_bytes"] > \
+                fams[f]["memory"]["peak_bytes"]:
+            fams[f] = r
+    over = [f"{r['arch']} {r['shape']} @ {r['mesh']}" for r in recs
+            if r["memory"]["argument_bytes"] > CARD_BYTES]
+    out["15a"] = dict(records=len(recs), ok=len(recs) - len(bad),
+                      by_family={f: dict(cell=f"{r['arch']} {r['shape']} @ "
+                                         f"{r['mesh']}",
+                                         peak_bytes=r["memory"]["peak_bytes"],
+                                         argument_bytes=r["memory"][
+                                             "argument_bytes"],
+                                         bottleneck=r["roofline"][
+                                             "bottleneck"])
+                                 for f, r in sorted(fams.items())},
+                      arguments_over_80gb=over,
+                      bottlenecks={b: sum(r["roofline"]["bottleneck"] == b
+                                          for r in recs) for b in
+                                   ("compute", "memory", "collective")},
+                      s=time.perf_counter() - t0)
+    print(f"[dryrun] 15a {len(recs)} records on (16, 16) and (2, 16, 16) "
+          f"meshes of meta entries, all ok, in {out['15a']['s']:.1f} s; "
+          f"bottlenecks {out['15a']['bottlenecks']}")
+    for f, r in sorted(fams.items()):
+        print(f"[dryrun] 15a {f}: largest per-device peak "
+              f"{r['memory']['peak_bytes'] / 1e9:.3f} GB ({r['arch']} "
+              f"{r['shape']} @ {r['mesh']}, arguments "
+              f"{r['memory']['argument_bytes'] / 1e9:.3f} GB), "
+              f"{r['roofline']['bottleneck']}-bound")
+    print(f"[dryrun] 15a cells whose arguments alone pass "
+          f"{CARD_BYTES / 1e9:.0f} GB a device: {over or 'none'}")
+
+    # 15b: the dry run against the card's run of the same spec
+    t0 = time.perf_counter()
+    mesh = Mesh([[card]], ("data", "model"))
+    arch = get_arch("yi-6b")
+    spec = SP.lm_train_spec(arch, ShapeSpec("train_4k", "train", {
+        "seq": TRAIN_SEQ, "batch": 1}), mesh, n_layers_override=2)
+    gen = torch.Generator(card).manual_seed(seed)
+
+    def train_run():
+        model = init_params(spec.args[0].cfg, gen, card)
+        opt = init_opt_state(model)
+        batch = {k: torch.randint(0, model.cfg.vocab, (1, TRAIN_SEQ),
+                                  generator=gen, device=card,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "targets")}
+        return (model, opt, batch), lambda: spec.fn(model, opt, batch)
+
+    b = _calibrate(spec, train_run, card, DRY_STEPS)
+    out["15b_train"] = b
+    print(f"[dryrun] 15b yi-6b train step (2 layers, seq {TRAIN_SEQ}, "
+          f"batch 1) on Mesh([[cuda:0]]): FLOPs {b['flops']:,} == the "
+          f"card's count, arguments {b['argument_bytes']:,} bytes == the "
+          f"real ones; {_peak_line(b)}; "
+          f"compute {b['compute_ms']:.2f} ms, memory {b['memory_ms']:.2f} "
+          f"ms against a measured step of {b['ms_median']:.2f} ms (median "
+          f"of {DRY_STEPS}: {', '.join(f'{x:.2f}' for x in b['ms'])}), "
+          f"{100 * b['roofline_share']:.1f}% of its roofline")
+    torch.cuda.empty_cache()
+
+    s_cache, lanes = LM_SERVE["s_cache"], LM_SERVE["max_batch"]
+    spec = SP.lm_decode_spec(arch, ShapeSpec("decode_32k", "decode", {
+        "seq": s_cache, "batch": lanes}), mesh)
+
+    def decode_run():
+        model = init_params(spec.args[0].cfg, gen, card)
+        cache = model.init_cache(lanes, s_cache)
+        token = torch.randint(0, model.cfg.vocab, (lanes,), generator=gen,
+                              device=card, dtype=torch.int32)
+        # lanes at every depth of the cache, the deepest at its last slot
+        step = s_cache // lanes
+        pos = (torch.arange(lanes, device=card, dtype=torch.int32) + 1) \
+            * step - 1
+        return (model, token, cache, pos), \
+            lambda: spec.fn(model, token, cache, pos)
+
+    d = _calibrate(spec, decode_run, card, DRY_TICKS)
+    bound = (lm or {}).get("12c", {}).get("step_bound_ms")
+    d["phase12c_step_bound_ms"] = bound
+    out["15b_decode"] = d
+    out["15b_s"] = time.perf_counter() - t0
+    print(f"[dryrun] 15b yi-6b decode tick (32 layers, {lanes} lanes, "
+          f"s_cache {s_cache}): FLOPs {d['flops']:,} == the card's count, "
+          f"arguments {d['argument_bytes']:,} bytes == the real ones; "
+          f"{_peak_line(d)}; "
+          f"compute {d['compute_ms']:.3f} ms, memory {d['memory_ms']:.3f} "
+          f"ms against a measured tick of {d['ms_median']:.2f} ms (median "
+          f"of {DRY_TICKS}), {100 * d['roofline_share']:.1f}% of its "
+          f"roofline; 12c's byte bound "
+          + (f"{bound:.3f} ms" if bound else "not measured in this run"))
+    torch.cuda.empty_cache()
+
+    # 15c: elastic restore onto meshes of repeated cuda:0, and the
+    # production launcher
+    t0 = time.perf_counter()
+    cfg = arch.smoke_config
+    model = init_params(cfg, torch.Generator(card).manual_seed(seed), card)
+    opt = init_opt_state(model)
+    g = torch.Generator(card).manual_seed(seed + 1)
+    for _, leaf in leaves_with_paths((opt.mu, opt.nu)):
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device=card))
+    state = {"params": model, "opt": opt,
+             "step": torch.tensor(7, dtype=torch.int32, device=card)}
+    saved = {p: (leaf.stack() if isinstance(leaf, Stacked) else leaf)
+             .detach() for p, leaf in leaves_with_paths(state)}
+
+    def rule(p, shp, m):
+        return lm_param_spec(p, shp, m, n_experts=cfg.n_experts)
+
+    def moment(p, shp, m):
+        return zero1_spec(rule(p, shp, m), shp, m)
+
+    def pairs(t, m):
+        if isinstance(t, P):
+            return (m, t)
+        if isinstance(t, OptState):
+            return OptState(*(pairs(v, m) for v in t))
+        return {k: pairs(v, m) for k, v in t.items()}
+
+    restored = {}
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        cm = CheckpointManager(tmp)
+        cm.save(5, state)
+        for grid in ((2, 2), (1, 4)):
+            m = Mesh(np.full(grid, card, dtype=object), ("data", "model"))
+            specs = {"params": spec_tree(model, rule, m),
+                     "opt": OptState(spec_tree(model, moment, m),
+                                     spec_tree(model, moment, m), P()),
+                     "step": P()}
+            got, _ = cm.restore(5, state, shardings=pairs(specs, m))
+            cut = SP.spec_leaves(specs)
+            flat = {}
+
+            def walk(t, prefix=""):
+                if isinstance(t, list):
+                    flat[prefix] = t
+                    return
+                items = (zip((f".{f}" for f in t._fields), t)
+                         if isinstance(t, OptState) else t.items())
+                for k, v in items:
+                    walk(v, f"{prefix}/{k}" if prefix else k)
+
+            walk(got)
+            n = 0
+            for path, shards in flat.items():
+                want = shard_tensor(saved[path], cut[path], m)
+                if len(shards) != len(want) or not all(
+                        a.device == card and torch.equal(a, w)
+                        for a, w in zip(shards, want)):
+                    raise SystemExit(f"[dryrun] 15c {path} restored onto "
+                                     f"{grid} differs from shard_tensor of "
+                                     f"the saved tensor")
+                n += len(shards)
+            restored[f"{grid[0]}x{grid[1]}"] = dict(leaves=len(flat),
+                                                    shards=n)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = launch_train.main(["--arch", "yi-6b"])
+    if rec["status"] != "ok":
+        raise SystemExit(f"[dryrun] 15c launch/train.py --arch yi-6b: "
+                         f"{rec['status']}")
+    out["15c"] = dict(restored=restored, production=dict(
+        mesh=rec["mesh"], memory=rec["memory"],
+        bottleneck=rec["roofline"]["bottleneck"]),
+        s=time.perf_counter() - t0)
+    print(f"[dryrun] 15c restore(shardings=) of yi-6b's smoke state onto "
+          f"(2, 2) and (1, 4) meshes of cuda:0: "
+          + "; ".join(f"{k} {v['leaves']} leaves, {v['shards']} shards"
+                      for k, v in restored.items())
+          + " — each equal to shard_tensor of the saved tensor bit for "
+          f"bit; launch/train.py --arch yi-6b (production mode): "
+          f"{rec['status']}, peak {rec['memory']['peak_bytes'] / 1e9:.3f} "
+          f"GB a device on {rec['mesh']}, "
+          f"{rec['roofline']['bottleneck']}-bound")
+    return out
+
+
 def main() -> int:
     # phase 13c runs under torch.use_deterministic_algorithms, which needs
     # cuBLAS's fixed workspace from the first handle on
@@ -3672,6 +4054,14 @@ def main() -> int:
     dist["s"] = time.perf_counter() - t0
     print(f"[dist] phase 14 in {dist['s']:.1f} s")
     print(json.dumps({"distribution": dist}))
+
+    # 15. dryrun: every cell's step traced on the meta device, then held
+    # against the card's own run of the same spec
+    t0 = time.perf_counter()
+    dry = _dryrun(args.seed, torch.device("cuda", 0), lm)
+    dry["s"] = time.perf_counter() - t0
+    print(f"[dryrun] phase 15 in {dry['s']:.1f} s")
+    print(json.dumps({"dryrun": dry}))
 
     print(json.dumps({"kernels": report}))
     print(_nvidia_smi())

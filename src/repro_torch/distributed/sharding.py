@@ -284,6 +284,15 @@ def _blocks(spec: P, mesh: Mesh, ndim: int) -> list[tuple[int, ...]]:
     return out
 
 
+def shard_shape(shape: Sequence[int], spec: P, mesh: Mesh
+                ) -> tuple[int, ...]:
+    """The largest block ``spec`` cuts of a tensor of ``shape`` (the
+    counterpart of ``NamedSharding.shard_shape``): each dim split over the
+    axes its entry names, rounded up, as JAX pads an uneven shard."""
+    return tuple(-(-dim // n) for dim, n in
+                 zip(shape, _parts(spec, mesh, len(shape))))
+
+
 def shard_tensor(x: torch.Tensor, spec: P, mesh: Mesh) -> list[torch.Tensor]:
     """``x``'s shard at every mesh coordinate, in coordinate order, each on
     its coordinate's device: dim ``d`` split into equal blocks over the

@@ -20,15 +20,62 @@ collectives below are plain functions over such lists:
   index along the axis the permutation names; a coordinate no pair sends
   to receives zeros, as in JAX.
 * :func:`axis_index` is a coordinate's index along an axis.
+
+Inside :func:`recording`, each collective also reports itself (its kind,
+the axes it runs over and the per-coordinate tensors), and a body runs
+inside :func:`per_coordinate`, which names its mesh: that is how the dry
+run counts a body it traces on the meta device (each op of a body is one
+coordinate's work).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Callable, Sequence
 
 import torch
 
 from .sharding import Mesh
+
+_RECORDERS: list[Callable] = []
+
+
+@contextlib.contextmanager
+def recording(fn: Callable):
+    """Within the block, every :func:`psum` and :func:`pmax` calls
+    ``fn("all-reduce", axes, xs, mesh)`` and every :func:`ppermute`
+    ``fn("collective-permute", (axis,), xs, mesh)``, ``xs`` the
+    per-coordinate inputs."""
+    _RECORDERS.append(fn)
+    try:
+        yield fn
+    finally:
+        _RECORDERS.remove(fn)
+
+
+_BODIES: list[Mesh] = []
+
+
+@contextlib.contextmanager
+def per_coordinate(mesh: Mesh):
+    """Marks a body that runs once per coordinate of ``mesh``, each time
+    on that coordinate's own tensors; :func:`body_mesh` is ``mesh``
+    within it."""
+    _BODIES.append(mesh)
+    try:
+        yield
+    finally:
+        _BODIES.pop()
+
+
+def body_mesh() -> Mesh | None:
+    """The mesh of the innermost :func:`per_coordinate` body, or None."""
+    return _BODIES[-1] if _BODIES else None
+
+
+def _note(op: str, axes, xs, mesh: Mesh) -> None:
+    for fn in _RECORDERS:
+        fn(op, _axes(axes), xs, mesh)
 
 
 def _axes(axes) -> tuple[str, ...]:
@@ -73,11 +120,13 @@ def _reduce(xs: Sequence[torch.Tensor], axes, mesh: Mesh, op
 
 def psum(xs: Sequence[torch.Tensor], axes, mesh: Mesh) -> list[torch.Tensor]:
     """Sum over ``axes`` (a name or a tuple of names; none: the inputs)."""
+    _note("all-reduce", axes, xs, mesh)
     return _reduce(xs, axes, mesh, torch.add)
 
 
 def pmax(xs: Sequence[torch.Tensor], axes, mesh: Mesh) -> list[torch.Tensor]:
     """Elementwise maximum over ``axes``."""
+    _note("all-reduce", axes, xs, mesh)
     return _reduce(xs, axes, mesh, torch.maximum)
 
 
@@ -88,6 +137,7 @@ def ppermute(xs: Sequence[torch.Tensor], axis: str, perm, mesh: Mesh
     ``(src, dst)`` in ``perm``; the others receive zeros."""
     if len(xs) != mesh.size:
         raise ValueError(f"{len(xs)} tensors for a mesh of {mesh.size}")
+    _note("collective-permute", axis, xs, mesh)
     k = mesh.axis_names.index(axis)
     coords = mesh.coords()
     out: list = [None] * mesh.size

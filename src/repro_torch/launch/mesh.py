@@ -8,7 +8,9 @@ process, so a mesh may hold more coordinates than there are devices:
 :func:`make_production_mesh` lays the devices present out over the grid
 in turn (every coordinate on the one card, on a machine with one), while
 :func:`make_host_mesh` caps its axes by the devices present, as the
-reference caps them by ``len(jax.devices())``.
+reference caps them by ``len(jax.devices())``.  ``device="meta"`` lays
+out meta entries (the dry run's meshes: no memory, no card); only a caller
+that names it gets it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from ..kernels import resolve_device
 
 def _devices(device) -> list[torch.device]:
     """Every device of ``device``'s kind: the cards present for
-    ``"cuda"`` (raises without one), the one CPU for ``"cpu"``."""
+    ``"cuda"`` (raises without one), the one CPU for ``"cpu"``, the meta
+    device for ``"meta"``."""
+    if torch.device(device).type == "meta":
+        return [torch.device("meta")]
     dev = resolve_device(device)
     if dev.type == "cuda":
         return [torch.device("cuda", i)

@@ -5,16 +5,19 @@ Two modes, as the reference's ``repro/launch/train.py``:
 * ``--smoke`` — the arch's REDUCED config trained end to end on one
   device: the real data pipeline, optimizer and checkpoints
   (:func:`smoke_train`);
-* default — the reference's production posture, the full config's
-  lowering spec compiled on the production mesh by its dry run
-  (``dryrun.run_cell``).  The dry run is roadmap item 15(d), not ported
-  yet: this mode raises, and runs nothing else.
+* default — the production posture: the full config's step on the
+  production mesh through the dry run (``dryrun.run_cell``: its spec on a
+  (16, 16) or, with ``--multi-pod``, a (2, 16, 16) mesh of meta entries,
+  traced and counted; nothing is allocated and no card is needed).  The
+  record is printed and returned.
 
-The run is on the card (``--device cuda``, the default; it raises without
-one) unless ``--device cpu`` is given.
+The smoke run is on the card (``--device cuda``, the default; it raises
+without one) unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
       --steps 20 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \\
+      [--shape train_4k] [--multi-pod]
 """
 
 from __future__ import annotations
@@ -67,17 +70,15 @@ def smoke_train(arch_name: str, steps: int, ckpt_dir: str | None,
     return tr
 
 
-def production_compile(arch_name: str, shape: str, multi_pod: bool) -> None:
-    raise NotImplementedError(
-        f"train.py --arch {arch_name} --shape {shape}"
-        f"{' --multi-pod' if multi_pod else ''}: the production mode "
-        f"compiles the full config through the reference's dry run "
-        f"(dryrun.run_cell), roadmap item 15(d), which the port has not "
-        f"ported yet; run --smoke instead")
+def production_compile(arch_name: str, shape: str, multi_pod: bool) -> dict:
+    """The cell's dry-run record on the production mesh."""
+    from .dryrun import run_cell
+    return run_cell(arch_name, shape, multi_pod)
 
 
 def main(argv=None):
-    """The launcher; with ``--smoke`` returns the trainer."""
+    """The launcher; with ``--smoke`` returns the trainer, else the dry
+    run's record."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k")
@@ -89,7 +90,7 @@ def main(argv=None):
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     if not args.smoke:
-        production_compile(args.arch, args.shape, args.multi_pod)
+        return production_compile(args.arch, args.shape, args.multi_pod)
     return smoke_train(args.arch, args.steps, args.ckpt_dir, args.device)
 
 

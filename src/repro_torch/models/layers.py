@@ -79,8 +79,9 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N), accumulated and returned in float32 (the
     reference's ``preferred_element_type=float32``).  On the card cuBLAS
-    reads the bf16 operands as they are and writes float32."""
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+    reads the bf16 operands as they are and writes float32; the meta
+    device (the dry run's trace) takes the card's ops."""
+    if (x.is_cuda or x.is_meta) and x.dtype == w.dtype == torch.bfloat16:
         out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
@@ -91,8 +92,9 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     reference's ``bf16_combine`` argument makes its row-parallel
     projections emit bf16 straight from the accumulator, so that tensor-
     parallel partial sums all-reduce in bf16; on one device both forms
-    round the same f32 sum once, so the port has no such argument.)"""
-    if x.is_cuda:
+    round the same f32 sum once, so the port has no such argument.)  The
+    meta device takes the card's op."""
+    if x.is_cuda or x.is_meta:
         return torch.matmul(x, w)        # bf16 in, f32 accumulate, bf16 out
     return (x.float() @ w.float()).to(x.dtype)
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import Mesh, P, shard_tensor, unshard
-from ..distributed.spmd import axis_index, psum
+from ..distributed.spmd import axis_index, per_coordinate, psum
 from .layers import Dtype, randn_scaled
 
 
@@ -197,10 +197,12 @@ def moe_ffn_sharded(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     xspec = P(dp_spec, None)
     e_base = [axis_index(mesh, tp_axis, i) * e_local if ep else 0
               for i in range(mesh.size)]
-    out, aux = _local_dispatch_ffn(
-        p_locs, shard_tensor(x, xspec, mesh), mesh=mesh, n_experts=E,
-        top_k=top_k, capacity_factor=capacity_factor, e_base=e_base,
-        e_local=e_local, dp_axes_t=dp_axes_t, tp_axis=tp_axis)
+    x_locs = shard_tensor(x, xspec, mesh)
+    with per_coordinate(mesh):
+        out, aux = _local_dispatch_ffn(
+            p_locs, x_locs, mesh=mesh, n_experts=E, top_k=top_k,
+            capacity_factor=capacity_factor, e_base=e_base,
+            e_local=e_local, dp_axes_t=dp_axes_t, tp_axis=tp_axis)
     return unshard(out, xspec, mesh, x.device), aux[0].to(x.device)
 
 

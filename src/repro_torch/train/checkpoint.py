@@ -9,7 +9,8 @@ that a checkpoint written by either package restores into the other.
   old checkpoints are kept for rollback;
 * **elastic** — arrays are saved whole, in the reference's logical
   layout (a model's layer leaves stacked ``(L, ...)``), and ``restore``
-  puts them on an explicit ``device``;
+  puts them on an explicit ``device``, or cuts each into the shards of a
+  mesh of any shape (``shardings``);
 * **integrity** — every array's SHA-256 is checked on load;
 * **exact data resume** — the pipeline cursor and the optimizer step are
   part of the payload.
@@ -33,8 +34,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..distributed.sharding import Mesh, shard_tensor
 from .tree import (Stacked, is_model, leaves_with_paths, map_with_paths,
-                   parts)
+                   parts, rebuild)
+
+
+def _is_pair(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], Mesh)
 
 
 def _to_storable(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -121,18 +127,28 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, step: int, target: Any, device=None,
-                verify: bool = True) -> tuple[Any, dict]:
+                verify: bool = True, shardings: Any = None
+                ) -> tuple[Any, dict]:
         """Restore into the structure of ``target`` (a tree of tensors, or
         of anything with ``shape`` and ``dtype``, such as tensors on the
         meta device).  Each array is cast to its target's dtype and put on
         ``device``, by default its target's (the CPU for a meta target).  A
         model in the target is filled in place, its parameters keeping
         their identity (``device`` moves it first).  Returns (state,
-        extra)."""
+        extra).
+
+        ``shardings`` (a tree matching ``target``, of ``(mesh, P)`` pairs;
+        a model's part is the nested dict of its stacked tree) re-shards
+        for the current mesh — elastic restore across mesh shapes: each
+        array comes back as its per-coordinate shards
+        (``shard_tensor``), each on its coordinate's device, and a model
+        in the target as the nested dict of its leaves' shards."""
         d = os.path.join(self.directory, f"step_{step:010d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         dev = None if device is None else torch.device(device)
+        cuts = None if shardings is None else dict(
+            leaves_with_paths(shardings, is_leaf=_is_pair))
 
         with np.load(os.path.join(d, "arrays.npz")) as data:
             def load(path: str, leaf) -> torch.Tensor:
@@ -146,7 +162,16 @@ class CheckpointManager:
                                      f"target {tuple(leaf.shape)}")
                 return arr.to(leaf.dtype)
 
+            def cut(path: str, leaf) -> list[torch.Tensor]:
+                mesh, spec = cuts[path]
+                return shard_tensor(load(path, leaf), spec, mesh)
+
             def restore_node(path: str, node):
+                if cuts is not None:
+                    if not is_model(node):
+                        return cut(path, node)
+                    return rebuild(node, [cut(p, leaf) for p, leaf in
+                                          leaves_with_paths(node, path)])
                 if not is_model(node):
                     to = dev or node.device
                     return load(path, node).to(

@@ -75,13 +75,16 @@ def _is_leaf(tree) -> bool:
         is_model(tree) or isinstance(tree, (dict, list, tuple)))
 
 
-def leaves_with_paths(tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
-    """``(path, leaf)`` of every leaf, in ``jax.tree.leaves`` order."""
-    if _is_leaf(tree):
+def leaves_with_paths(tree, prefix: str = "", is_leaf: Callable | None = None
+                      ) -> Iterator[tuple[str, Any]]:
+    """``(path, leaf)`` of every leaf, in ``jax.tree.leaves`` order;
+    ``is_leaf`` marks more nodes as leaves (a partition spec, which is a
+    tuple itself), as ``jax.tree_util``'s argument of that name."""
+    if _is_leaf(tree) or (is_leaf is not None and is_leaf(tree)):
         yield prefix, tree
         return
     for key, child in _children(tree):
-        yield from leaves_with_paths(child, _join(prefix, key))
+        yield from leaves_with_paths(child, _join(prefix, key), is_leaf)
 
 
 def _join(prefix: str, key: str) -> str:

@@ -84,7 +84,14 @@ installed:
   expert parallel, padded, two data shards; 2e-2), the granite smoke LM
   with the mesh wired in (2e-2), ``compressed_psum_with_feedback`` bit for
   bit over 2 and 3 shards, and ``pipeline_apply`` forward and gradients
-  (and against ``mlp_reference`` on the card, 1e-5 / 1e-4).
+  (and against ``mlp_reference`` on the card, 1e-5 / 1e-4);
+* the dry run against the card: a train step and a decode tick of the
+  yi-6b and granite smoke configs on a (1, 1) mesh of ``cuda:0`` —
+  ``FlopCounterMode``'s count of the card's run equals the meta trace's
+  FLOPs, and the real arguments' bytes the spec's; and
+  ``CheckpointManager.restore(shardings=)`` onto (2, 2) and (1, 4) meshes
+  of repeated ``cuda:0``, each shard on the card and equal to
+  ``shard_tensor`` of the saved tensor bit for bit.
 """
 
 import numpy as np
@@ -1421,3 +1428,98 @@ def test_pipeline_on_card_matches_cpu(card):
                                atol=1e-5)
     torch.testing.assert_close(got[str(card)][1], got["cpu"][1], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("name", ["yi-6b", "granite-moe-3b-a800m"])
+def test_dryrun_counts_equal_card_run(card, name, kind):
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import Mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.tree import leaves_with_paths, parts
+    a = get_arch(name)
+    arch = dataclasses.replace(a, config=a.smoke_config)
+    # the spec on a (1, 1) mesh of meta entries (the MoE runs its body per
+    # coordinate on the mesh's devices); the card's model on cuda:0's
+    mesh = Mesh([["meta"]], ("data", "model"))
+    gen = torch.Generator(card).manual_seed(0)
+
+    def on_card(cfg):
+        return init_params(dataclasses.replace(cfg, mesh=Mesh(
+            [[card]], ("data", "model"))), gen, card)
+
+    if kind == "train":
+        spec = SP.lm_train_spec(arch, ShapeSpec("t", "train", {
+            "seq": 64, "batch": 2}), mesh)
+        model = on_card(spec.args[0].cfg)
+        args = (model, init_opt_state(model), {
+            k: torch.randint(0, model.cfg.vocab, (2, 64), generator=gen,
+                             device=card, dtype=torch.int32)
+            for k in ("tokens", "targets")})
+    else:
+        spec = SP.lm_decode_spec(arch, ShapeSpec("d", "decode", {
+            "seq": 64, "batch": 4}), mesh)
+        model = on_card(spec.args[0].cfg)
+        args = (model, torch.zeros(4, dtype=torch.int32, device=card),
+                model.init_cache(4, 64),
+                torch.tensor([15, 31, 47, 63], dtype=torch.int32,
+                             device=card))
+    dry = D.count_spec(spec)
+    with FlopCounterMode(display=False) as fc:
+        spec.fn(*args)
+    real = sum(p.numel() * p.element_size() for tree in args
+               for _, leaf in leaves_with_paths(tree) for p in parts(leaf))
+    assert dry.flops == fc.get_total_flops() > 0
+    assert dry.argument_bytes == real
+
+
+def test_restore_shardings_on_card(card, tmp_path):
+    import numpy as np_
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import Mesh, P, shard_tensor
+    from repro_torch.distributed.sharding import lm_param_spec, spec_tree
+    from repro_torch.launch.specs import spec_leaves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.tree import Stacked, leaves_with_paths
+    cfg = get_arch("yi-6b").smoke_config
+    model = init_params(cfg, torch.Generator(card).manual_seed(0), card)
+    state = {"params": model, "x": torch.arange(12, device=card)}
+    saved = {p: (v.stack() if isinstance(v, Stacked) else v).detach()
+             for p, v in leaves_with_paths(state)}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(1, state)
+    for grid in ((2, 2), (1, 4)):
+        mesh = Mesh(np_.full(grid, card, dtype=object), ("data", "model"))
+        specs = {"params": spec_tree(model, lambda p, s, m: lm_param_spec(
+            p, s, m), mesh), "x": P("model")}
+        pairs = {"params": {}, "x": (mesh, specs["x"])}
+
+        def wrap(t):
+            return (mesh, t) if isinstance(t, P) else {
+                k: wrap(v) for k, v in t.items()}
+
+        pairs["params"] = wrap(specs["params"])
+        got, _ = cm.restore(1, state, shardings=pairs)
+        flat = {}
+
+        def walk(t, prefix=""):
+            if isinstance(t, list):
+                flat[prefix] = t
+                return
+            for k, v in t.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+
+        walk(got)
+        cuts = spec_leaves(specs)
+        assert sorted(flat) == sorted(saved)
+        for path, shards in flat.items():
+            want = shard_tensor(saved[path], cuts[path], mesh)
+            assert all(a.device == card and torch.equal(a, w)
+                       for a, w in zip(shards, want)), path

@@ -284,10 +284,15 @@ def test_smoke_train_on_cpu(tmp_path):
 
 
 def test_train_launcher_production_mode_refuses():
-    """The default mode is the reference's dry-run compile, which is not
-    ported: it raises and runs nothing else."""
-    with pytest.raises(NotImplementedError, match="dry run"):
-        launch_train.main(["--arch", "yi-6b", "--device", "cpu"])
+    """The default mode is the dry run of the full config on the
+    production mesh (meta entries: nothing allocated, no card): it returns
+    the cell's record, and refuses a shape the arch does not have."""
+    rec = launch_train.main(["--arch", "yi-6b", "--device", "cpu",
+                             "--multi-pod"])
+    assert rec["status"] == "ok" and rec["mesh"] == "2x16x16"
+    assert rec["shape"] == "train_4k" and rec["devices"] == 512
+    with pytest.raises(KeyError, match="no shape"):
+        launch_train.main(["--arch", "yi-6b", "--shape", "train_8k"])
 
 
 def test_train_lm_demo_on_cpu(tmp_path):

@@ -91,7 +91,9 @@ def test_imports_without_jax_or_repro():
             "repro_torch.launch.train_lm",
             "repro_torch.launch.web_graph", "repro_torch.launch.mesh",
             "repro_torch.distributed.spmd",
-            "repro_torch.distributed.pipeline"} <= mods
+            "repro_torch.distributed.pipeline",
+            "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dryrun"} <= mods
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -124,6 +126,22 @@ def tiny_res():
     rng = np.random.default_rng(0)
     return repair_compress([np.unique(rng.integers(0, 300, 40))
                             for _ in range(6)])
+
+
+def test_meta_mesh_only_where_named(no_card):
+    """The dry run's meshes hold meta entries and need no card; the
+    default (``"cuda"``) still raises without one, and ``resolve_device``
+    refuses the meta device (no path from ``"cuda"`` to the CPU or to
+    meta)."""
+    from repro_torch.launch import dryrun, mesh
+    m = mesh.make_production_mesh(multi_pod=True, device="meta")
+    assert m.grid == (2, 16, 16) and {d.type for d in m.devices} == {"meta"}
+    with pytest.raises(RuntimeError, match="is_available"):
+        mesh.make_production_mesh()
+    with pytest.raises(ValueError, match="unsupported device"):
+        KR.resolve_device("meta")
+    rec = dryrun.run_cell("deepfm", "serve_p99", False, verbose=False)
+    assert rec["status"] == "ok" and rec["devices"] == 256
 
 
 def test_cuda_entry_points_raise_without_card(no_card, tiny_res):
@@ -281,8 +299,8 @@ def test_train_entry_points_raise_without_card(no_card, tmp_path):
     otherwise: ``launch/train.py --smoke``, ``launch/train_lm.py`` and
     ``launch/web_graph.py`` raise without one (nothing falls back to the
     CPU), and run with ``--device cpu``; the production mode of
-    ``launch/train.py`` (the reference's dry run, not ported) refuses with
-    or without a card."""
+    ``launch/train.py`` (the dry run, on meta entries) needs no card and
+    returns its record."""
     from repro_torch.launch import train, train_lm, web_graph
     with pytest.raises(RuntimeError, match="is_available"):
         train.main(["--smoke", "--arch", "yi-6b", "--steps", "2",
@@ -293,8 +311,8 @@ def test_train_entry_points_raise_without_card(no_card, tmp_path):
         train_lm.main(["--steps", "2"])
     with pytest.raises(RuntimeError, match="is_available"):
         web_graph.main()
-    with pytest.raises(NotImplementedError, match="dry run"):
-        train.main(["--arch", "yi-6b"])
+    rec = train.main(["--arch", "yi-6b", "--shape", "decode_32k"])
+    assert rec["status"] == "ok" and rec["shape"] == "decode_32k"
     assert not (tmp_path / "step_0000000002").exists()
     tr = train.main(["--smoke", "--arch", "yi-6b", "--steps", "2",
                      "--ckpt-dir", str(tmp_path), "--device", "cpu"])
