@@ -50,6 +50,7 @@ import torch
 
 from ..core.repair import Grammar, RePairResult, lists_to_gap_stream
 from ..kernels import resolve_device
+from ..obs import span
 from .base import Builder, BuildConfig
 
 I32 = torch.int32
@@ -487,6 +488,10 @@ class TorchBuilder(Builder):
         return state, (n_chosen, kept_any, n_good, n_runs, n_live)
 
     def build_grammar(self, lists: Sequence[np.ndarray]) -> RePairResult:
+        with span("build.grammar"):
+            return self._build_grammar(lists)
+
+    def _build_grammar(self, lists: Sequence[np.ndarray]) -> RePairResult:
         cfg = self.config
         state, meta = self.init_state(lists)
         T, L = meta["T"], meta["L"]

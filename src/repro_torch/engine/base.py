@@ -62,6 +62,7 @@ from ..core.index import (DEFAULT_PAGE, INT_INF, ScoreIndex,
 from ..core.repair import RePairResult
 from ..index.codec_tier import (CODEC_BITMAP, CODEC_NAMES, bitmap_member_np,
                                 bitmap_next_geq_np, build_codec_tier)
+from ..obs import span
 from ..store import (PageStore, ResidentSet, build_page_store,
                      pages_in_spans, resolve_store_kind)
 
@@ -316,6 +317,10 @@ class Engine(abc.ABC):
         construction.  Surviving unique lanes then consult the bounded
         probe memo; only memo misses reach the backend.  A round fully
         served by the memo skips dispatch entirely."""
+        with span("engine.dispatch_round"):
+            return self._dispatch_round(list_ids, xs, algo)
+
+    def _dispatch_round(self, list_ids, xs, algo: str) -> np.ndarray:
         lids = np.asarray(list_ids, np.int32).ravel()
         xq = np.asarray(xs, np.int32).ravel()
         n = lids.size

@@ -55,6 +55,7 @@ from ..distributed.sharding import INDEX_REPLICATED_FIELDS, Mesh
 from ..index import codec_tier as CT
 from ..kernels import resolve_device
 from ..kernels.list_intersect import ops as K
+from ..obs import span, to_host
 from ..store import PageStore, ResidentSet, build_page_store, pages_in_spans
 from .base import Engine
 from . import torch_backend as J
@@ -256,8 +257,9 @@ def _flat_probe(shard: FlatIndex):
     device."""
     def probe(lids: np.ndarray, xs: np.ndarray) -> np.ndarray:
         dev = shard.c.device
-        return J.next_geq_batch(shard, torch.from_numpy(lids).to(dev),
-                                torch.from_numpy(xs).to(dev)).cpu().numpy()
+        return to_host(J.next_geq_batch(
+            shard, torch.from_numpy(lids).to(dev),
+            torch.from_numpy(xs).to(dev)))
     return probe
 
 
@@ -421,9 +423,8 @@ class DeviceEngine(Engine):
         slot-indexed paged program against the bounded pool."""
         self.resident.ensure(K.probe_working_set(self._route_host, lids, xq))
         ps, pu, st = self._pool()
-        return J.next_geq_batch_resident(
-            self.pi, ps, pu, st, self._tensor(lids),
-            self._tensor(xq)).cpu().numpy()
+        return to_host(J.next_geq_batch_resident(
+            self.pi, ps, pu, st, self._tensor(lids), self._tensor(xq)))
 
     def _next_geq_repair_bys(self, list_ids: np.ndarray,
                              xs: np.ndarray) -> np.ndarray:
@@ -437,9 +438,9 @@ class DeviceEngine(Engine):
             return self._next_geq_repair(list_ids, xs)
         if self._bys_incl is None:
             self._bys_incl = J.build_bys_table(self.fi)
-        return J.next_geq_bys_batch(
+        return to_host(J.next_geq_bys_batch(
             self.fi, self._bys_incl, self._tensor(list_ids),
-            self._tensor(xs)).cpu().numpy()
+            self._tensor(xs)))
 
     # -- codec-tier device paths --------------------------------------------
 
@@ -449,8 +450,8 @@ class DeviceEngine(Engine):
                 "dev": EF.ef_device_pack(self.tier.ef, rank, self.device)}
 
     def _ef_next_geq(self, lids, xq) -> np.ndarray:
-        return EF.ef_next_geq_torch(self._ef_pack()["dev"], self._tensor(lids),
-                                    self._tensor(xq)).cpu().numpy()
+        return to_host(EF.ef_next_geq_torch(
+            self._ef_pack()["dev"], self._tensor(lids), self._tensor(xq)))
 
     def _bm_pack(self) -> dict:
         key = (self.index_version, "bm")
@@ -463,8 +464,8 @@ class DeviceEngine(Engine):
     def _bitmap_next_geq(self, lids, xq) -> np.ndarray:
         """Bitmap lanes run the plain torch program on every device engine:
         the JAX package has no TPU kernel for this probe either."""
-        return CT.bitmap_next_geq_torch(self._bm_pack(), self._tensor(lids),
-                                        self._tensor(xq)).cpu().numpy()
+        return to_host(CT.bitmap_next_geq_torch(
+            self._bm_pack(), self._tensor(lids), self._tensor(xq)))
 
     def _probe_tiered(self, long_ids, mat) -> np.ndarray:
         """(B,) ids × (B, M) probes with per-list codec routing: without a
@@ -532,7 +533,8 @@ class DeviceEngine(Engine):
                     else max(1, self.DECODE_BATCH_SLOTS // width))
             for k in range(0, len(group), step):
                 chunk = group[k:k + step]
-                rows = self._expand(chunk, width).cpu().numpy()
+                with span("engine.expand"):
+                    rows = to_host(self._expand(chunk, width))
                 for i, row in zip(chunk, rows):
                     got[i] = self.compact(row)
         return [got[i] for i in ids]
@@ -559,8 +561,8 @@ class DeviceEngine(Engine):
         mat = torch.cat(blocks)
         owner = np.concatenate(owner)
         vals = self._probe_tiered(longs[owner].astype(np.int32),
-                                  mat.cpu().numpy())
-        kept = J.match_mask(self._tensor(vals), mat).cpu().numpy()
+                                  to_host(mat))
+        kept = to_host(J.match_mask(self._tensor(vals), mat))
         out: list[list[np.ndarray]] = [[] for _ in range(arr.shape[0])]
         for qi, row in zip(owner.tolist(), kept):
             out[qi].append(row)
@@ -578,9 +580,9 @@ class DeviceEngine(Engine):
         cand = self._expand_rows(order[0]).reshape(1, -1)
         for i in order[1:]:
             vals = self._probe_tiered(np.asarray([i], np.int32),
-                                      cand.cpu().numpy())
+                                      to_host(cand))
             cand = J.match_mask(self._tensor(vals), cand)
-        return self.compact(cand[0].cpu().numpy())
+        return self.compact(to_host(cand[0]))
 
     # -- ranked scoring -----------------------------------------------------
 
@@ -628,7 +630,7 @@ class DeviceEngine(Engine):
             self.resident.ensure(pages_in_spans(
                 si.pg_sym_lo[e], si.pg_sym_hi[e], self.pi.page_size))
             out = J.decode_pages_resident(self.pi, *self._pool(), *args, **kw)
-        return out.cpu().numpy()
+        return to_host(out)
 
     def score_batch(self, doc_ids: np.ndarray, terms) -> np.ndarray:
         """Device-side score accumulation: the membership probes ride the
@@ -651,7 +653,7 @@ class DeviceEngine(Engine):
             torch.from_numpy(si.idf[ts]).to(self.device),
             torch.from_numpy(si.doc_w[docs]).to(self.device),
             torch.from_numpy(member).to(self.device))
-        return out.cpu().numpy()
+        return to_host(out)
 
 
 class TorchEngine(DeviceEngine):
@@ -682,4 +684,4 @@ class TorchEngine(DeviceEngine):
             out = J.next_geq_batch_paged(self.pi, lids, xq)
         else:
             out = J.next_geq_batch(self.fi, lids, xq)
-        return out.cpu().numpy()
+        return to_host(out)

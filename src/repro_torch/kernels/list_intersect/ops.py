@@ -42,6 +42,7 @@ from ...core.index import (INT_INF, FlatIndex, PagedIndex, build_paged_index,
                            paged_index_from_arrays)
 from ...engine.torch_backend import (paged_readers, resident_readers,
                                      skip_descend)
+from ...obs import to_host
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 13 + [_I] * 6
@@ -255,7 +256,7 @@ def next_geq_paged(tables: dict, host: dict, list_ids: np.ndarray,
                           T=T, slot_of_page=slot_of_page)
     unsort = np.empty(q, np.int64)
     unsort[order] = np.arange(q)
-    return out.cpu().numpy()[unsort]
+    return to_host(out)[unsort]
 
 
 def next_geq_resident(tables: dict, host: dict, resident,

@@ -38,6 +38,8 @@ import dataclasses
 
 import numpy as np
 
+from ..obs import span
+
 __all__ = ["ProbeRound", "ScoreRound", "DecodeList", "SetOp",
            "PhraseShift", "drive"]
 
@@ -106,6 +108,10 @@ class SetOp:
     b: np.ndarray | int | None = None
 
     def run(self) -> np.ndarray:
+        with span("query.host_step", op=self.op):
+            return self._run()
+
+    def _run(self) -> np.ndarray:
         if self.op == "union":
             return np.union1d(self.a, self.b)
         if self.op == "intersect":
@@ -134,6 +140,11 @@ class PhraseShift:
     k: int = 0
 
     def run(self) -> np.ndarray:
+        with span("query.host_step",
+                  op="shift" if self.stride is None else "project"):
+            return self._run()
+
+    def _run(self) -> np.ndarray:
         if self.stride is None:
             out = np.asarray(self.positions, np.int64) - int(self.offset)
             return out[out >= 0]

@@ -59,6 +59,7 @@ import numpy as np
 
 from ..core.cache import LRUCache
 from ..engine.base import _env_flag
+from ..obs import span
 from ..query import QueryExecutor
 from ..query.ast import And, Node, Not, Or, Phrase, Term, terms_of
 from ..query.parser import parse
@@ -171,6 +172,7 @@ class QueryScheduler:
         self.pages_skipped = 0
         self.threshold_final = 0.0   # θ of the most recent ranked query
         self._next_qid = 0
+        self._ticks = 0
         self._queue: deque[_InFlight] = deque()
         self._running: list[_InFlight] = []
         self._done: dict[int, np.ndarray] = {}
@@ -227,6 +229,10 @@ class QueryScheduler:
         hit completes immediately (no machine, no rounds)."""
         qid = self._next_qid
         self._next_qid += 1
+        with span("query.submit", qid=qid):
+            return self._submit(qid, q, force_algo)
+
+    def _submit(self, qid: int, q, force_algo: str | None) -> int:
         t0 = time.perf_counter()
         if self.segmented is not None:
             # segmented mode: the machine snapshots delta + segments at
@@ -266,6 +272,10 @@ class QueryScheduler:
         with boolean results or with each other across ``k``."""
         qid = self._next_qid
         self._next_qid += 1
+        with span("query.submit", qid=qid):
+            return self._submit_topk(qid, q, k, prune)
+
+    def _submit_topk(self, qid: int, q, k: int, prune: bool) -> int:
         t0 = time.perf_counter()
         if self.segmented is not None:
             terms = tuple(sorted({int(t) for t in _term_bag(q)
@@ -314,6 +324,11 @@ class QueryScheduler:
         tick's dispatches (DESIGN.md §13.3).  The thread is joined — and
         its pages admitted — at the top of the next tick, before any
         code touches the resident pools."""
+        self._ticks += 1
+        with span("scheduler.tick", tick=self._ticks):
+            return self._tick()
+
+    def _tick(self) -> int:
         self._join_prefetch()
         while self._queue and len(self._running) < self.batch_window:
             fl = self._queue.popleft()
@@ -494,6 +509,10 @@ class QueryScheduler:
         machine that RAISES is retired before the error propagates — a
         poisoned query must not wedge the scheduler: everything else in
         flight keeps ticking on the next call."""
+        with span("scheduler.advance", qid=fl.qid):
+            self._run_machine(fl, value, start)
+
+    def _run_machine(self, fl: _InFlight, value, start: bool) -> None:
         try:
             step = next(fl.machine) if start else fl.machine.send(value)
             while True:
